@@ -1,14 +1,16 @@
-"""Descriptor matching for the tracking step.
+"""Descriptor matching for the tracking and local-mapping steps.
 
-Port of the tracking slice's part of ``orb_slam_2_ros_tpu/frontend/
-matcher.py``. Each search builds per-row and per-column metadata and runs
-the fused masked best-two search of ``ops/match_kernel.py`` (the CUDA
-kernel for CUDA tensors, its plain version for CPU tensors), then the
+Port of the RGB-D path's part of ``orb_slam_2_ros_tpu/frontend/
+matcher.py``. Each projection search builds per-row and per-column metadata
+and runs the fused masked best-two search of ``ops/match_kernel.py`` (the
+CUDA kernel for CUDA tensors, its plain version for CPU tensors), then the
 accept gates, the rotation histogram and a scatter-min conflict resolution.
 
 ``search_reference_kf`` goes through the same kernel with its gates opened
 (infinite radius, octave band [-1, 99], no stereo coordinate), which gives
 the reference's ungated masked ``best_two`` without an (N, M) matrix.
+``search_for_triangulation`` gates by the epipolar line, which the kernel's
+metadata cannot express, and works on the (N, M) Hamming matrix in PyTorch.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch
 from orb_slam_2_ros_tpu_torch.config import SlamConfig
 from orb_slam_2_ros_tpu_torch.frontend.frame import Frame
 from orb_slam_2_ros_tpu_torch.geometry import camera, se3
-from orb_slam_2_ros_tpu_torch.ops.hamming import INF_DIST
+from orb_slam_2_ros_tpu_torch.ops.hamming import INF_DIST, hamming_matrix
 from orb_slam_2_ros_tpu_torch.ops.match_kernel import masked_best_two
 
 _KEY_NONE = 0x7FFFFFFF
@@ -171,11 +173,14 @@ def search_by_projection_pose(mp_world: torch.Tensor, mp_desc: torch.Tensor,
                               src_octave: torch.Tensor,
                               src_valid: torch.Tensor, q, t, frame: Frame,
                               cfg: SlamConfig, th: float,
-                              src_angle: torch.Tensor,
+                              src_angle: torch.Tensor = None,
+                              check_rotation: bool = True,
                               widen_below: int = 0):
     """Project known 3D points (with a source octave each) into the frame
-    under pose (q, t) and match in a window th*scale^octave — the
-    last-frame -> current SearchByProjection (``ORBmatcher.cc:1330-1472``).
+    under pose (q, t) and match in a window th*scale^octave: the
+    last-frame -> current SearchByProjection (``ORBmatcher.cc:1330-1472``)
+    and, with ``check_rotation=False`` and no ``src_angle``, the projection
+    search of landmark fusion (``ORBmatcher::Fuse``).
 
     widen_below > 0 re-matches with a 2x window when fewer than that many
     matches pass (``Tracking.cc:1002-1016``). Both passes always run and a
@@ -196,8 +201,9 @@ def search_by_projection_pose(mp_world: torch.Tensor, mp_desc: torch.Tensor,
             uvr[..., 2], ok, frame.uv, frame.kps.octave, frame.u_right,
             frame.valid)
         accept = (best_d <= cfg.matcher.th_high) & ok
-        rot = _degrees(src_angle - frame.kps.angle[best_idx.long()])
-        accept = rotation_consistency(rot, accept)
+        if check_rotation and src_angle is not None:
+            rot = _degrees(src_angle - frame.kps.angle[best_idx.long()])
+            accept = rotation_consistency(rot, accept)
         return best_idx, best_d, accept
 
     best_idx, best_d, accept = attempt(th * sf)
@@ -231,3 +237,36 @@ def search_reference_kf(ref_desc: torch.Tensor, ref_valid: torch.Tensor,
     rot = _degrees(ref_angle - frame.kps.angle[best_idx.long()])
     accept = rotation_consistency(rot, accept)
     return resolve_conflicts(best_idx, best_d, accept, frame.desc.shape[0])
+
+
+def search_for_triangulation(f1_desc, f1_uv, f1_valid, f2_desc, f2_uv, f2_oct,
+                             f2_valid, F12: torch.Tensor, cfg: SlamConfig):
+    """Epipolar-gated matching between two keyframes for new-point creation
+    (``SearchForTriangulation``, ``ORBmatcher.cc:659-825``): candidates are
+    unmatched features whose pairing passes the fundamental-matrix distance
+    gate ``CheckDistEpipolarLine`` (``:140-157``). No rotation check and no
+    vocabulary-node gate, as the reference's mapping step calls it.
+
+    F12 maps points of image 1 to epipolar lines in image 2
+    (x2^T F12 x1 = 0). Per feature of image 1 the best gated feature of
+    image 2 is taken, ties to the lowest index by a composite key (an
+    ``argmin`` on CUDA promises no tie order). Returns (idx2_to_idx1 (M,)
+    int32, dist)."""
+    N, M = f1_desc.shape[0], f2_desc.shape[0]
+    # epipolar line of each f1 feature in image 2: l = F12 @ [u1, v1, 1]
+    x1 = torch.cat([f1_uv, torch.ones_like(f1_uv[:, :1])], dim=-1)   # (N, 3)
+    lines = x1 @ F12.T
+    a, b, c = lines[:, 0:1], lines[:, 1:2], lines[:, 2:3]
+    num = a * f2_uv[None, :, 0] + b * f2_uv[None, :, 1] + c          # (N, M)
+    dsqr = (num * num) / torch.clamp(a * a + b * b, min=1e-12)
+    sf2 = torch.pow(torch.full_like(f2_uv[:, 0], cfg.orb.scale_factor),
+                    f2_oct.to(torch.float32))
+    mask = (f1_valid[:, None] & f2_valid[None, :]
+            & (dsqr < 3.84 * (sf2 * sf2)[None, :]))
+    D = hamming_matrix(f1_desc, f2_desc)
+    cols = torch.arange(M, dtype=torch.int32, device=D.device)
+    key = torch.where(mask, D, torch.full_like(D, INF_DIST)) * (1 << 15) + cols
+    best = torch.min(key, dim=1).values
+    best_idx, best_d = best & ((1 << 15) - 1), best >> 15
+    accept = (best_d <= cfg.matcher.th_low) & f1_valid
+    return resolve_conflicts(best_idx, best_d, accept, M)

@@ -1,6 +1,6 @@
 """Pinhole camera with Brown-Conrady distortion, batched over points.
 
-Port of the tracking slice's part of ``orb_slam_2_ros_tpu/geometry/camera.py``:
+Port of the RGB-D path's part of ``orb_slam_2_ros_tpu/geometry/camera.py``:
 pixel tensors are (..., 2), point tensors (..., 3).
 """
 
@@ -11,6 +11,12 @@ import torch
 from orb_slam_2_ros_tpu_torch.config import CameraConfig
 
 _EPS = 1e-9
+
+
+def intrinsics(cam: CameraConfig, device) -> torch.Tensor:
+    """The (3, 3) calibration matrix K on ``device``."""
+    return torch.tensor([[cam.fx, 0.0, cam.cx], [0.0, cam.fy, cam.cy],
+                         [0.0, 0.0, 1.0]], dtype=torch.float32, device=device)
 
 
 def _normalize(cam: CameraConfig, uv: torch.Tensor) -> torch.Tensor:

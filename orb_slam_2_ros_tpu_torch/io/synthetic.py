@@ -218,3 +218,38 @@ class SyntheticRGBD:
         """Ground truth world-to-camera (R, t) like the internal convention."""
         R_wc, c_w = self.poses[i]
         return R_wc.T, -R_wc.T @ c_w
+
+
+def _render_block(job):
+    """Worker of ``render_frames``: the frames ``indices`` of the sequence
+    that ``kwargs`` describe."""
+    cfg, kwargs, indices = job
+    ds = SyntheticRGBD(cfg, **kwargs)
+    return [ds[i] for i in indices]
+
+
+def render_frames(cfg: SlamConfig, n_frames: int, workers: int = 1, **kwargs):
+    """Render a whole sequence: (dataset, grays (N, H, W), depths (N, H, W)).
+    ``kwargs`` go to ``SyntheticRGBD`` (seed, trajectory, ...). With
+    ``workers`` > 1 the frames are rendered by that many processes, each of
+    which builds the same scene from the seed; the result is the same,
+    frame for frame, and the processes are gone when the call returns."""
+    kwargs = dict(kwargs, n_frames=n_frames)
+    ds = SyntheticRGBD(cfg, **kwargs)
+    if workers <= 1:
+        frames = [ds[i] for i in range(n_frames)]
+    else:
+        import concurrent.futures
+        import multiprocessing
+        blocks = [list(range(w, n_frames, workers)) for w in range(workers)]
+        with concurrent.futures.ProcessPoolExecutor(
+                max_workers=workers,
+                mp_context=multiprocessing.get_context("spawn")) as pool:
+            done = list(pool.map(_render_block,
+                                 [(cfg, kwargs, b) for b in blocks]))
+        frames = [None] * n_frames
+        for block, rendered in zip(blocks, done):
+            for i, frame in zip(block, rendered):
+                frames[i] = frame
+    return (ds, np.stack([f[0] for f in frames]),
+            np.stack([f[1] for f in frames]))

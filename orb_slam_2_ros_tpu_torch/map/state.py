@@ -1,9 +1,13 @@
 """MapState: the map as a NamedTuple of fixed-shape tensors.
 
-Port of the tracking slice's part of ``orb_slam_2_ros_tpu/map/state.py``:
+Port of ``orb_slam_2_ros_tpu/map/state.py`` without ``insert_keyframe`` and
+``spawn_points`` (the tracker commits through ``commit_keyframe``):
 keyframes are rows of pooled tensors (pose, features and the kp -> map
 point observation table ``kf_mp``), map points are rows of point pools.
-Descriptors are int32 words with the reference's uint32 bits.
+Descriptors are int32 words with the reference's uint32 bits. What the
+original keeps incrementally under mutexes (observation counts,
+covisibility weights, viewing normals and scale bands) is recomputed from
+the observation table in batched passes.
 
 Updates are functional like the reference's (each returns a new MapState);
 the pools are small enough that a copy per frame costs microseconds on the
@@ -20,6 +24,7 @@ import torch
 from orb_slam_2_ros_tpu_torch.config import SlamConfig
 from orb_slam_2_ros_tpu_torch.frontend.frame import Frame
 from orb_slam_2_ros_tpu_torch.geometry import se3
+from orb_slam_2_ros_tpu_torch.ops.hamming import popcount
 
 NOBS_DESC = 8   # newest observations kept per point for the descriptor choice
 
@@ -104,12 +109,12 @@ def empty(cfg: SlamConfig, device) -> MapState:
     )
 
 
-def _pad(pool: torch.Tensor) -> torch.Tensor:
+def pad_row(pool: torch.Tensor) -> torch.Tensor:
     """The pool with one spare row at index M for writes that must not land."""
     return torch.cat([pool, torch.zeros_like(pool[:1])], dim=0)
 
 
-def _set_rows(pool: torch.Tensor, idx: torch.Tensor,
+def set_rows(pool: torch.Tensor, idx: torch.Tensor,
               vals: torch.Tensor) -> torch.Tensor:
     """``pool.at[idx].set(vals)`` with idx in [0, M] (M = spare row, dropped).
     Where idx repeats, the last writer wins, as in XLA's CPU scatter; the
@@ -121,12 +126,19 @@ def _set_rows(pool: torch.Tensor, idx: torch.Tensor,
     last = last.scatter_reduce(0, idx, order, reduce="amax")
     keep = last[idx] == order
     idx = torch.where(keep, idx, torch.full_like(idx, M))
-    return _pad(pool).index_put((idx,), vals)[:M]
+    return pad_row(pool).index_put((idx,), vals)[:M]
 
 
-def _set_row(pool: torch.Tensor, k: torch.Tensor, vals: torch.Tensor):
+def set_row(pool: torch.Tensor, k: torch.Tensor, vals: torch.Tensor):
     """``pool.at[k].set(vals)`` for a 0-d index tensor k."""
     return pool.index_copy(0, k.reshape(1).to(torch.int64), vals[None])
+
+
+def row(pool: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """``pool[k]`` for a 0-d index tensor k on the pool's device. Plain
+    indexing with such a tensor reads it on the host first, which waits
+    for the device; ``index_select`` does not."""
+    return pool.index_select(0, k.reshape(1).to(torch.int64))[0]
 
 
 def bump_visibility(state: MapState, visible_mask: torch.Tensor,
@@ -138,7 +150,7 @@ def bump_visibility(state: MapState, visible_mask: torch.Tensor,
     vis = state.mp_visible + (visible_mask & enable).to(torch.int32)
     tgt = torch.where((found_ids >= 0) & enable, found_ids.to(torch.int64),
                       torch.full_like(found_ids, M, dtype=torch.int64))
-    fnd = _pad(state.mp_found).index_add(
+    fnd = pad_row(state.mp_found).index_add(
         0, tgt, torch.ones_like(tgt, dtype=torch.int32))[:M]
     return state._replace(mp_visible=vis, mp_found=fnd)
 
@@ -161,21 +173,21 @@ def commit_keyframe(state: MapState, frame: Frame, q, t, frame_id,
                         torch.full_like(kp_to_mp, -1))
 
     state = state._replace(
-        kf_q=_set_row(state.kf_q, k, q),
-        kf_t=_set_row(state.kf_t, k, t),
-        kf_valid=_set_row(state.kf_valid, k,
+        kf_q=set_row(state.kf_q, k, q),
+        kf_t=set_row(state.kf_t, k, t),
+        kf_valid=set_row(state.kf_valid, k,
                           need | (state.kf_valid[k] & (state.n_kfs > k))),
-        kf_frame_id=_set_row(state.kf_frame_id, k,
+        kf_frame_id=set_row(state.kf_frame_id, k,
                              torch.as_tensor(frame_id, dtype=torch.int32,
                                              device=dev)),
-        kf_uv=_set_row(state.kf_uv, k, frame.uv),
-        kf_ur=_set_row(state.kf_ur, k, frame.u_right),
-        kf_depth=_set_row(state.kf_depth, k, frame.depth),
-        kf_octave=_set_row(state.kf_octave, k, frame.kps.octave),
-        kf_angle=_set_row(state.kf_angle, k, frame.kps.angle),
-        kf_desc=_set_row(state.kf_desc, k, frame.kps.desc),
-        kf_kp_valid=_set_row(state.kf_kp_valid, k, frame.kps.valid & need),
-        kf_mp=_set_row(state.kf_mp, k, kp_mp),
+        kf_uv=set_row(state.kf_uv, k, frame.uv),
+        kf_ur=set_row(state.kf_ur, k, frame.u_right),
+        kf_depth=set_row(state.kf_depth, k, frame.depth),
+        kf_octave=set_row(state.kf_octave, k, frame.kps.octave),
+        kf_angle=set_row(state.kf_angle, k, frame.kps.angle),
+        kf_desc=set_row(state.kf_desc, k, frame.kps.desc),
+        kf_kp_valid=set_row(state.kf_kp_valid, k, frame.kps.valid & need),
+        kf_mp=set_row(state.kf_mp, k, kp_mp),
     )
 
     # --- incremental stats for points matched by this keyframe
@@ -194,16 +206,16 @@ def commit_keyframe(state: MapState, frame: Frame, q, t, frame_id,
     max_d = dist * sf
     min_d = max_d / sf_span
 
-    dir_sum = _pad(state.mp_dir_sum).index_add(
+    dir_sum = pad_row(state.mp_dir_sum).index_add(
         0, mp_ids, torch.where(obs_mask[:, None], dirs,
                                torch.zeros_like(dirs)))[:M]
     # ring-buffer slot from the PRE-increment count
     slot = (state.mp_obs_cnt[kp_c] % NOBS_DESC).to(i64)
     flat_idx = k * P + torch.arange(P, dtype=torch.int32, device=dev)
-    tbl = _pad(state.mp_obs_tbl)
-    flat_tbl = _set_rows(tbl.reshape(-1), mp_ids * NOBS_DESC + slot, flat_idx)
+    tbl = pad_row(state.mp_obs_tbl)
+    flat_tbl = set_rows(tbl.reshape(-1), mp_ids * NOBS_DESC + slot, flat_idx)
     obs_tbl = flat_tbl.reshape(M + 1, NOBS_DESC)[:M]
-    obs_cnt = _pad(state.mp_obs_cnt).index_add(
+    obs_cnt = pad_row(state.mp_obs_cnt).index_add(
         0, mp_ids, obs_mask.to(torch.int32))[:M]
     norm = torch.linalg.norm(dir_sum, dim=-1, keepdim=True)
     zero = torch.zeros_like(dist)
@@ -214,11 +226,11 @@ def commit_keyframe(state: MapState, frame: Frame, q, t, frame_id,
         mp_normal=torch.where((obs_cnt > 0)[:, None],
                               dir_sum / torch.clamp(norm, min=1e-9),
                               state.mp_normal),
-        mp_max_dist=_set_rows(state.mp_max_dist, mp_ids,
+        mp_max_dist=set_rows(state.mp_max_dist, mp_ids,
                               torch.where(obs_mask, 1.2 * max_d, zero)),
-        mp_min_dist=_set_rows(state.mp_min_dist, mp_ids,
+        mp_min_dist=set_rows(state.mp_min_dist, mp_ids,
                               torch.where(obs_mask, 0.8 * min_d, zero)),
-        mp_desc=_set_rows(state.mp_desc, mp_ids,
+        mp_desc=set_rows(state.mp_desc, mp_ids,
                           torch.where(obs_mask[:, None], frame.kps.desc,
                                       torch.zeros_like(frame.kps.desc))),
     )
@@ -243,7 +255,7 @@ def commit_keyframe(state: MapState, frame: Frame, q, t, frame_id,
     unit_s = dirs_s / torch.clamp(dist_s[:, None], min=1e-9)
 
     def scat(pool, vals):
-        return _pad(pool).index_put((tgt,), vals)[:M]
+        return pad_row(pool).index_put((tgt,), vals)[:M]
 
     ones = torch.ones((P,), dtype=torch.int32, device=dev)
     new_tbl = torch.full((P, NOBS_DESC), -1, dtype=torch.int32, device=dev)
@@ -262,8 +274,291 @@ def commit_keyframe(state: MapState, frame: Frame, q, t, frame_id,
         mp_visible=scat(state.mp_visible, ones),
         mp_found=scat(state.mp_found, ones),
         mp_obs_tbl=scat(state.mp_obs_tbl, new_tbl),
-        kf_mp=_set_row(state.kf_mp, k, kf_mp_row),
+        kf_mp=set_row(state.kf_mp, k, kf_mp_row),
         n_kfs=state.n_kfs + need.to(torch.int32),
         n_mps=state.n_mps + torch.sum(spawn, dtype=torch.int32),
     )
     return state, kf_mp_row
+
+
+# ----------------------------------------------------- local-mapping passes
+
+def _live_observations(state: MapState):
+    """The observation table flattened: (flat_mp (K*P,) int32 with -1 on
+    invalid keyframes, ok (K*P,) bool, tgt (K*P,) int64 with M where not
+    ok)."""
+    obs = torch.where(state.kf_valid[:, None], state.kf_mp,
+                      torch.full_like(state.kf_mp, -1))
+    flat = obs.reshape(-1)
+    ok = flat >= 0
+    tgt = torch.where(ok, flat.to(torch.int64),
+                      torch.full_like(flat, state.M, dtype=torch.int64))
+    return flat, ok, tgt
+
+
+def _count(tgt: torch.Tensor, ok: torch.Tensor, M: int) -> torch.Tensor:
+    cnt = torch.zeros((M + 1,), dtype=torch.int32, device=tgt.device)
+    return cnt.index_add(0, tgt, ok.to(torch.int32))[:M]
+
+
+def observation_count(state: MapState) -> torch.Tensor:
+    """(M,) int32 number of keyframes observing each map point."""
+    _, ok, tgt = _live_observations(state)
+    return _count(tgt, ok, state.M)
+
+
+def _distinctive_descriptors(obs_tbl: torch.Tensor, have: torch.Tensor,
+                             desc_flat: torch.Tensor) -> torch.Tensor:
+    """Per map point, the observation descriptor with minimum median Hamming
+    distance to that point's other observations
+    (``MapPoint::ComputeDistinctiveDescriptors``, ``MapPoint.cc:288-361``),
+    over the whole pool from the per-point observation ring buffer
+    (``mp_obs_tbl``: the newest NOBS_DESC observations).
+
+    obs_tbl (M, NOBS) flat observation indices; have (M, NOBS) validity;
+    desc_flat (KP, 8) int32. Returns (M, 8) int32 (zeros where no obs).
+    Among equal medians the lowest slot wins, as ``jnp.argmin`` picks it.
+    """
+    KP = desc_flat.shape[0]
+    NOBS = obs_tbl.shape[1]
+    desc_pad = torch.cat([desc_flat, torch.zeros_like(desc_flat[:1])], dim=0)
+    idx = torch.where(have, obs_tbl.to(torch.int64),
+                      torch.full_like(obs_tbl, KP, dtype=torch.int64))
+    d = desc_pad[idx]                                       # (M, NOBS, 8)
+    ham = torch.sum(popcount(d[:, :, None, :] ^ d[:, None, :, :]), dim=-1,
+                    dtype=torch.int32)                      # (M, NOBS, NOBS)
+    big = 1 << 10
+    ham = torch.where(have[:, :, None] & have[:, None, :], ham,
+                      torch.full_like(ham, big))
+    # median over each candidate's distances to the valid observations
+    # (self-distance 0 included, matching the original's vDists)
+    sortd, _ = torch.sort(ham, dim=-1)
+    nv = torch.sum(have, dim=-1)                            # (M,) int64
+    med_idx = torch.clamp((nv - 1) // 2, 0, NOBS - 1)
+    med = torch.gather(sortd, 2, med_idx[:, None, None].expand(-1, NOBS, 1))
+    med = torch.where(have, med[..., 0], torch.full_like(med[..., 0], big))
+    slots = torch.arange(NOBS, dtype=torch.int32, device=med.device)
+    best = (torch.min(med * NOBS + slots, dim=-1).values % NOBS).to(
+        torch.int64)                                        # (M,)
+    return torch.gather(d, 1, best[:, None, None].expand(-1, 1, 8))[:, 0]
+
+
+def refresh_point_stats(state: MapState, cfg: SlamConfig) -> MapState:
+    """Recompute viewing normals, scale-invariance bands and representative
+    descriptors for all map points in one pass over the observation table
+    (``MapPoint::UpdateNormalAndDepth`` ``MapPoint.cc:388-452``,
+    ``ComputeDistinctiveDescriptors`` ``MapPoint.cc:288-361``).
+
+    Among a point's observations the descriptor with minimum median Hamming
+    distance to the others is kept, evaluated over the newest ``NOBS_DESC``
+    observations per point. Ring-buffer entries are validated against the
+    live observation table first (fusion and culling leave stale entries
+    behind); a point whose whole buffer is stale falls back to its newest
+    observation's descriptor and re-seeds the buffer with it. Also rebuilds
+    the incremental pools (``mp_dir_sum``, ``mp_obs_cnt``) so that
+    ``commit_keyframe`` stays consistent."""
+    K, P, M = state.K, state.P, state.M
+    dev = state.kf_q.device
+    i32, i64 = torch.int32, torch.int64
+    flat_mp, ok, tgt = _live_observations(state)
+    flat_c = torch.clamp(flat_mp, min=0).to(i64)
+
+    centers = se3.camera_center(state.kf_q, state.kf_t)            # (K, 3)
+    cen = centers.repeat_interleave(P, dim=0)                      # (K*P, 3)
+    d = state.mp_pos[flat_c] - cen
+    dist = torch.linalg.norm(d, dim=-1)
+    dirs = d / torch.clamp(dist[:, None], min=1e-9)
+
+    nsum = torch.zeros((M + 1, 3), dtype=torch.float32, device=dev).index_add(
+        0, tgt, torch.where(ok[:, None], dirs, torch.zeros_like(dirs)))[:M]
+    normal = nsum / torch.clamp(
+        torch.linalg.norm(nsum, dim=-1, keepdim=True), min=1e-9)
+
+    def scatter_max(idx, vals):
+        zero = torch.zeros((M + 1,), dtype=vals.dtype, device=dev)
+        return zero.scatter_reduce(0, idx, vals, reduce="amax")[:M]
+
+    # scale band + descriptor from the newest observation
+    kf_ids = torch.arange(K, dtype=i32, device=dev).repeat_interleave(P)
+    newest = scatter_max(tgt, torch.where(ok, kf_ids + 1,
+                                          torch.zeros_like(kf_ids))) - 1
+    has_obs = newest >= 0
+    is_newest = ok & (kf_ids == newest[flat_c])
+    tgt_new = torch.where(is_newest, flat_c, torch.full_like(flat_c, M))
+    dist_new = scatter_max(tgt_new, torch.where(is_newest, dist,
+                                                torch.zeros_like(dist)))
+    oct_flat = state.kf_octave.reshape(-1)
+    oct_new = scatter_max(tgt_new, torch.where(is_newest, oct_flat,
+                                               torch.zeros_like(oct_flat)))
+    sf = torch.pow(torch.full_like(dist_new, cfg.orb.scale_factor),
+                   oct_new.to(torch.float32))
+    max_d = dist_new * sf
+    min_d = max_d / (cfg.orb.scale_factor ** (cfg.orb.n_levels - 1))
+    desc_flat = state.kf_desc.reshape(-1, 8)
+    tbl = state.mp_obs_tbl
+    t_kf = torch.clamp(tbl // P, 0, K - 1).to(i64)
+    t_kp = torch.clamp(tbl % P, 0, P - 1).to(i64)
+    have = ((tbl >= 0) & state.kf_valid[t_kf]
+            & (state.kf_mp[t_kf, t_kp]
+               == torch.arange(M, dtype=i32, device=dev)[:, None]))
+    desc = _distinctive_descriptors(tbl, have, desc_flat)
+    keep = state.mp_valid & has_obs
+    flat_pos = torch.arange(K * P, dtype=i32, device=dev)
+    flat_newest = scatter_max(tgt_new, torch.where(
+        is_newest, flat_pos, torch.zeros_like(flat_pos)))
+    buffered = torch.any(have, dim=-1)
+    desc = torch.where(buffered[:, None], desc,
+                       desc_flat[flat_newest.to(i64)])
+    seed = torch.full((M, NOBS_DESC), -1, dtype=i32, device=dev)
+    seed[:, 0] = flat_newest
+    tbl = torch.where((keep & ~buffered)[:, None], seed, tbl)
+    return state._replace(
+        mp_normal=torch.where(keep[:, None], normal, state.mp_normal),
+        mp_max_dist=torch.where(keep, 1.2 * max_d, state.mp_max_dist),
+        mp_min_dist=torch.where(keep, 0.8 * min_d, state.mp_min_dist),
+        mp_desc=torch.where(keep[:, None], desc, state.mp_desc),
+        mp_obs_tbl=tbl,
+        mp_dir_sum=torch.where(keep[:, None], nsum, state.mp_dir_sum),
+        mp_obs_cnt=torch.where(state.mp_valid, _count(tgt, ok, M),
+                               state.mp_obs_cnt),
+    )
+
+
+def _repack(keep: torch.Tensor):
+    """Order-preserving packing of the rows where ``keep`` to the front of
+    a pool of N rows. Returns (remap (N,) int32: old row -> new row or -1,
+    inv (N,) int64: new row -> old row for the live rows, live (N,) bool,
+    n_valid () int32)."""
+    N = keep.shape[0]
+    dev = keep.device
+    rows = torch.arange(N, dtype=torch.int32, device=dev)
+    new_idx = torch.cumsum(keep.to(torch.int32), 0, dtype=torch.int32) - 1
+    remap = torch.where(keep, new_idx, torch.full_like(new_idx, -1))
+    # kept rows land on distinct slots; the others all go to the spare one
+    tgt = torch.where(keep, new_idx, torch.full_like(new_idx, N)).to(
+        torch.int64)
+    inv = torch.zeros((N + 1,), dtype=torch.int64, device=dev).index_put(
+        (tgt,), rows.to(torch.int64))[:N]
+    n_valid = torch.sum(keep, dtype=torch.int32)
+    return remap, inv, rows < n_valid, n_valid
+
+
+def _gather_live(pool: torch.Tensor, inv: torch.Tensor, live: torch.Tensor,
+                 fill=0) -> torch.Tensor:
+    out = pool[inv]
+    mask = live.reshape((-1,) + (1,) * (pool.dim() - 1))
+    return torch.where(mask, out, torch.full_like(out, fill))
+
+
+def compact_points(state: MapState):
+    """Re-pack valid map points to the front of the pool so that culled and
+    fused rows are reused by future spawns (``Map::EraseMapPoint``,
+    ``Map.cc:69-78``). Without this ``n_mps`` only grows and a long
+    sequence exhausts the pool even though culling keeps the live count
+    bounded.
+
+    Live rows keep their relative order, so age (``mp_first_kf``) and the
+    ring buffers survive. Returns (state, remap (M,) int32: old id -> new
+    id, -1 if culled). Callers that hold map-point ids across the call (the
+    tracker's ``last_mp``) must re-index through ``remap``."""
+    remap, inv, live, n_valid = _repack(state.mp_valid)
+
+    def g(pool, fill=0):
+        return _gather_live(pool, inv, live, fill)
+
+    kf_mp = torch.where(
+        state.kf_mp >= 0,
+        remap[torch.clamp(state.kf_mp, min=0).to(torch.int64)],
+        torch.full_like(state.kf_mp, -1))
+    state = state._replace(
+        kf_mp=kf_mp,
+        mp_pos=g(state.mp_pos),
+        mp_valid=live,
+        mp_desc=g(state.mp_desc),
+        mp_normal=g(state.mp_normal),
+        mp_min_dist=g(state.mp_min_dist),
+        mp_max_dist=g(state.mp_max_dist, fill=1),
+        mp_first_kf=g(state.mp_first_kf, fill=-1),
+        mp_dir_sum=g(state.mp_dir_sum),
+        mp_obs_cnt=g(state.mp_obs_cnt),
+        mp_visible=g(state.mp_visible, fill=1),
+        mp_found=g(state.mp_found, fill=1),
+        mp_obs_tbl=g(state.mp_obs_tbl, fill=-1),
+        n_mps=n_valid,
+    )
+    return state, remap
+
+
+def compact_keyframes(state: MapState):
+    """Re-pack valid keyframes to the front of the pool, freeing culled
+    rows for reuse (``Map::EraseKeyFrame``, ``Map.cc:81-97``;
+    ``KeyFrame::SetBadFlag`` re-parenting, ``KeyFrame.cc:553-671``).
+
+    Order-preserving, so the insertion-order chain stays chronological.
+    ``mp_first_kf`` entries whose keyframe was culled re-anchor to the
+    nearest surviving predecessor; ring-buffer entries on culled keyframes
+    are dropped (the refresh re-seeds them).
+
+    Returns (state, remap (K,) int32: old row -> new row, -1 if culled).
+    Host-side consumers (``FrameRecord.ref_kf``) must be re-based through
+    ``remap``: see ``System.compact_keyframe_pool``."""
+    K, P = state.K, state.P
+    i64 = torch.int64
+    keep = state.kf_valid
+    remap, inv, live, n_valid = _repack(keep)
+    rows = torch.arange(K, dtype=torch.int32, device=keep.device)
+
+    # nearest surviving predecessor of every old row (for re-anchoring)
+    anc = torch.cummax(torch.where(keep, rows, torch.full_like(rows, -1)),
+                       dim=0).values
+    anchor_remap = torch.where(anc >= 0, remap[torch.clamp(anc, min=0).to(i64)],
+                               torch.zeros_like(anc))
+
+    def g(pool, fill=0):
+        return _gather_live(pool, inv, live, fill)
+
+    first = torch.clamp(state.mp_first_kf, 0, K - 1).to(i64)
+    mp_first = torch.where(state.mp_first_kf >= 0, anchor_remap[first],
+                           torch.full_like(state.mp_first_kf, -1))
+    # observation ring buffer: flat kf*P + kp indices follow their keyframe
+    tbl = state.mp_obs_tbl
+    t_kf = torch.clamp(tbl // P, 0, K - 1).to(i64)
+    tbl_new = torch.where((tbl >= 0) & keep[t_kf],
+                          remap[t_kf] * P + tbl % P, torch.full_like(tbl, -1))
+    state = state._replace(
+        kf_q=g(state.kf_q),
+        kf_t=g(state.kf_t),
+        kf_valid=live,
+        kf_frame_id=g(state.kf_frame_id, fill=-1),
+        kf_uv=g(state.kf_uv),
+        kf_ur=g(state.kf_ur, fill=-1),
+        kf_depth=g(state.kf_depth, fill=-1),
+        kf_octave=g(state.kf_octave),
+        kf_angle=g(state.kf_angle),
+        kf_desc=g(state.kf_desc),
+        kf_kp_valid=g(state.kf_kp_valid),
+        kf_mp=g(state.kf_mp, fill=-1),
+        mp_first_kf=mp_first,
+        mp_obs_tbl=tbl_new,
+        n_kfs=n_valid,
+    )
+    return state, remap
+
+
+def covisibility(state: MapState) -> torch.Tensor:
+    """(K, K) int32 shared-observation counts: the covisibility graph
+    (``KeyFrame::UpdateConnections``, ``KeyFrame.cc:344-460``) as one
+    incidence matmul in f32 (TF32 is off package-wide, and counts up to P
+    are exact in f32)."""
+    K, M = state.K, state.M
+    obs = torch.where(state.kf_valid[:, None], state.kf_mp,
+                      torch.full_like(state.kf_mp, -1))
+    ok = obs >= 0
+    tgt = torch.where(ok, obs.to(torch.int64),
+                      torch.full_like(obs, M, dtype=torch.int64))
+    inc = torch.zeros((K, M + 1), dtype=torch.float32, device=obs.device)
+    # a point seen twice by one keyframe writes the same 1.0 twice
+    inc = inc.scatter(1, tgt, ok.to(torch.float32))
+    inc = inc[:, :M] * state.mp_valid[None, :]
+    cov = inc @ inc.T
+    return (cov - torch.diag(torch.diagonal(cov))).to(torch.int32)

@@ -1,8 +1,9 @@
-"""Where a tracked frame's time goes on the card, from one run.
+"""Where the time goes on the card: a tracked frame, or a mapping step.
 
-    python -m orb_slam_2_ros_tpu_torch.profiling
+    python -m orb_slam_2_ros_tpu_torch.profiling            # tracking
+    python -m orb_slam_2_ros_tpu_torch.profiling mapping    # local mapping
 
-Tracks the first 72 frames of ``chip_smoke.py``'s 96-frame synthetic orbit
+**Tracking.** Tracks the first 72 frames of ``chip_smoke.py``'s 96-frame synthetic orbit
 at the reference operating point on ``cuda``. Frames 0-63 run first, in
 unprofiled chunks of 16 timed with the host clock. Frames 64-71 are then
 tracked as two windows of 4: the first under
@@ -28,6 +29,21 @@ after it. Every number printed comes from this one process:
 
 The top kernels by device time and the stage table also go to
 ``chiprun_out/profile_tracking.txt``. The last line is a JSON summary.
+
+**Mapping.** Runs ``System(cfg, enable_loop_closing=False)`` over
+``chip_smoke.py``'s 224-frame synthetic loop in chunks of 16. Every call of
+the mapper is timed with the host clock between two synchronisations, so a
+chunk's wall time splits into tracking and mapping. The executed steps
+named in ``PROFILED_STEPS`` run under ``torch.profiler`` with a
+``record_function`` range around each part of the step; the others run
+unprofiled. It prints, from this one process: per chunk the wall seconds
+of tracking and of mapping; per executed step its wall ms and what it did
+(free cameras and points, BA iterations, points spawned, fused, culled);
+over the profiled steps, per step: device busy ms, kernel launches, the
+idle share, the stage table, and the matcher kernel's launches and mean
+device time; and the executed steps' share of their chunks' wall time and
+of the whole run's. The table and the top kernels also go to
+``chiprun_out/profile_mapping.txt``; the last line is a JSON summary.
 """
 
 from __future__ import annotations
@@ -44,14 +60,20 @@ import torch
 
 from orb_slam_2_ros_tpu_torch.config import SENSOR_RGBD, SlamConfig
 from orb_slam_2_ros_tpu_torch.frontend import extractor, matcher
+from orb_slam_2_ros_tpu_torch.geometry import triangulate
 from orb_slam_2_ros_tpu_torch.io import SyntheticRGBD
 from orb_slam_2_ros_tpu_torch.map import state as map_state
 from orb_slam_2_ros_tpu_torch.ops import fast
-from orb_slam_2_ros_tpu_torch.pipeline import tracking
+from orb_slam_2_ros_tpu_torch.pipeline import local_mapping, tracking
+from orb_slam_2_ros_tpu_torch.pipeline.slam import System
+from orb_slam_2_ros_tpu_torch.solvers import ba
 
 FRAMES = 72
 WINDOW = 4      # frames in the profiled and in the unprofiled window
 OUT = os.path.join("chiprun_out", "profile_tracking.txt")
+MAP_FRAMES = 224
+MAP_OUT = os.path.join("chiprun_out", "profile_mapping.txt")
+PROFILED_STEPS = (2, 4, 6)      # executed mapping steps, counted from 0
 MATCHER_KERNEL = "masked_best_two_kernel"    # its name in the profile
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx")
@@ -76,7 +98,20 @@ STAGES = (
     (map_state, "bump_visibility", "bump_visibility", 1),
     (map_state, "commit_keyframe", "commit_keyframe", 1),
 )
-STAGE_NAMES = {name for _, _, name, _ in STAGES}
+# the parts of one mapping step, nested under the step's own range
+MAP_STAGES = (
+    (local_mapping, "_mapping_body", "mapping_step", 0),
+    (map_state, "covisibility", "covisibility", 1),
+    (local_mapping, "create_new_map_points", "create_new_map_points", 1),
+    (matcher, "search_for_triangulation", "search_for_triangulation", 2),
+    (triangulate, "triangulate_dlt", "triangulate_dlt", 2),
+    (local_mapping, "fuse_duplicates", "fuse_duplicates", 1),
+    (matcher, "search_by_projection_pose", "search_by_projection_pose", 2),
+    (ba, "windowed_bundle_adjustment", "windowed_bundle_adjustment", 1),
+    (local_mapping, "cull_keyframes", "cull_keyframes", 1),
+    (map_state, "compact_points", "compact_points", 1),
+    (map_state, "refresh_point_stats", "refresh_point_stats", 1),
+)
 
 
 def _ranged(fn, name):
@@ -88,11 +123,11 @@ def _ranged(fn, name):
 
 
 @contextlib.contextmanager
-def stage_ranges():
-    """Wrap every stage of ``STAGES`` in a named profiler range."""
-    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _, _ in STAGES]
+def stage_ranges(stages=STAGES):
+    """Wrap every stage of ``stages`` in a named profiler range."""
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _, _ in stages]
     try:
-        for mod, attr, name, _ in STAGES:
+        for mod, attr, name, _ in stages:
             setattr(mod, attr, _ranged(getattr(mod, attr), name))
         yield
     finally:
@@ -100,48 +135,51 @@ def stage_ranges():
             setattr(mod, attr, fn)
 
 
-def _stage_of(event):
+def _stage_of(event, names):
     """The innermost stage range that encloses a host event, or None."""
     e = event.cpu_parent
     while e is not None:
-        if e.name in STAGE_NAMES:
+        if e.name in names:
             return e.name
         e = e.cpu_parent
     return None
 
 
-def summarize(events, n_frames):
+def summarize(events, n, stages=STAGES, unit="frame"):
     """Device busy time, launch counts and the per-stage table of one
-    profiled window, from ``prof.events()``."""
+    profiled window (or several, their events concatenated), from
+    ``prof.events()``, each divided by ``n``, the window's count of
+    ``unit``s (frames, or mapping steps)."""
+    names = {name for _, _, name, _ in stages}
     host = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
     busy_us = sum(k.duration for e in host for k in e.kernels)
     n_device_ops = sum(len(e.kernels) for e in host)
     launches = [e for e in host if e.name in LAUNCH_CALLS]
     per = {name: {"calls": 0, "host_us": 0.0, "device_us": 0.0, "launches": 0}
-           for name in STAGE_NAMES}
+           for name in names}
     for e in host:
-        if e.name in STAGE_NAMES:
+        if e.name in names:
             row = per[e.name]
             row["calls"] += 1
             row["host_us"] += e.cpu_time_total
             row["device_us"] += e.device_time_total
     for e in launches:
-        stage = _stage_of(e)
+        stage = _stage_of(e, names)
         if stage is not None:
             per[stage]["launches"] += 1
-    stages = []
-    for _, _, name, depth in STAGES:
+    rows = []
+    for _, _, name, depth in stages:
         row = per[name]
-        stages.append({
+        rows.append({
             "stage": name, "depth": depth,
-            "calls_per_frame": row["calls"] / n_frames,
-            "host_ms_per_frame": row["host_us"] / 1e3 / n_frames,
-            "device_ms_per_frame": row["device_us"] / 1e3 / n_frames,
-            "launches_per_frame": row["launches"] / n_frames})
-    return {"device_busy_ms_per_frame": busy_us / 1e3 / n_frames,
-            "device_ops_per_frame": n_device_ops / n_frames,
-            "launches_per_frame": len(launches) / n_frames,
-            "stages": stages}
+            f"calls_per_{unit}": row["calls"] / n,
+            f"host_ms_per_{unit}": row["host_us"] / 1e3 / n,
+            f"device_ms_per_{unit}": row["device_us"] / 1e3 / n,
+            f"launches_per_{unit}": row["launches"] / n})
+    return {f"device_busy_ms_per_{unit}": busy_us / 1e3 / n,
+            f"device_ops_per_{unit}": n_device_ops / n,
+            f"launches_per_{unit}": len(launches) / n,
+            "stages": rows}
 
 
 def kernel_by_name(averages, name):
@@ -154,26 +192,30 @@ def kernel_by_name(averages, name):
             "mean_device_us": total_us / count if count else None}
 
 
-def stage_table(stages):
+def stage_table(stages, unit="frame"):
     lines = [f"{'stage':34s} {'calls':>6s} {'host ms':>9s} {'device ms':>10s} "
-             f"{'launches':>9s}   (per frame)"]
+             f"{'launches':>9s}   (per {unit})"]
     for s in stages:
         name = "  " * s["depth"] + s["stage"]
-        lines.append(f"{name:34s} {s['calls_per_frame']:6.2f} "
-                     f"{s['host_ms_per_frame']:9.3f} "
-                     f"{s['device_ms_per_frame']:10.4f} "
-                     f"{s['launches_per_frame']:9.1f}")
+        lines.append(f"{name:34s} {s[f'calls_per_{unit}']:6.2f} "
+                     f"{s[f'host_ms_per_{unit}']:9.3f} "
+                     f"{s[f'device_ms_per_{unit}']:10.4f} "
+                     f"{s[f'launches_per_{unit}']:9.1f}")
     return "\n".join(lines)
 
 
-def main():
+def _card():
     if not torch.cuda.is_available():
         raise SystemExit("profiling: no CUDA device")
-
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(smi, flush=True)
+    return smi
+
+
+def main():
+    smi = _card()
     cfg = SlamConfig(sensor=SENSOR_RGBD)
     ds = SyntheticRGBD(cfg, n_frames=96, seed=0, trajectory="orbit")
     n, w = FRAMES, WINDOW
@@ -248,5 +290,135 @@ def main():
     print(json.dumps(result), flush=True)
 
 
+def step_numbers(step):
+    """A mapping step's record (``LocalMapper.last_step``) as host numbers."""
+    return {k: (int(v) if isinstance(v, torch.Tensor) else v)
+            for k, v in step.items()}
+
+
+def main_mapping():
+    smi = _card()
+    cfg = SlamConfig(sensor=SENSOR_RGBD)
+    n = MAP_FRAMES
+    ds = SyntheticRGBD(cfg, n_frames=n, seed=0, trajectory="loop")
+    grays = np.stack([ds[i][0] for i in range(n)])
+    depths = np.stack([ds[i][1] for i in range(n)])
+    system = System(cfg, enable_loop_closing=False)
+    mapper = system.mapper
+    C = system.tracker.CHUNK
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    calls, profiles = [], []      # one entry per call of the mapper
+    run = mapper.run
+
+    def timed_run(m, last_mp, **kwargs):
+        executes = mapper.has_work(kwargs["n_kfs"])
+        profiled = executes and mapper.n_executed in PROFILED_STEPS
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if profiled:
+            with stage_ranges(MAP_STAGES), \
+                    torch.profiler.profile(activities=acts) as prof:
+                out = run(m, last_mp, **kwargs)
+                torch.cuda.synchronize()
+            profiles.append(prof)
+        else:
+            out = run(m, last_mp, **kwargs)
+            torch.cuda.synchronize()
+        calls.append({"executed": executes, "profiled": profiled,
+                      "seconds": time.perf_counter() - t0,
+                      **(step_numbers(mapper.last_step) if executes else {})})
+        return out
+
+    mapper.run = timed_run
+    chunk_s = []
+    for w0 in range(0, n, C):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        system.track_chunk(grays[w0:w0 + C], depths[w0:w0 + C],
+                           ds.timestamps[w0:w0 + C])
+        torch.cuda.synchronize()
+        chunk_s.append(time.perf_counter() - t0)
+    n_ok = sum(r.state == tracking.OK for r in system.records)
+
+    for i, (c, total) in enumerate(zip(calls, chunk_s)):
+        line = (f"chunk {i:2d}: tracking {total - c['seconds']:.3f} s, "
+                f"mapping {c['seconds']:.3f} s")
+        if c["executed"]:
+            line += (f" ({'profiled' if c['profiled'] else 'unprofiled'}: "
+                     f"{c['n_ba_cams']} free cameras, {c['n_ba_free']} free "
+                     f"points, BA iterations {c['ba_iters']}, spawned "
+                     f"{c['n_spawned']}, fused {c['n_fused']}, culled "
+                     f"{c['n_culled']}, keyframes culled {c['n_kf_culled']})")
+        print(line, flush=True)
+
+    n_prof = len(profiles)
+    events = [e for prof in profiles for e in prof.events()]
+    summary = summarize(events, n_prof, MAP_STAGES, unit="step")
+    launches = sum(kernel_by_name(p.key_averages(), MATCHER_KERNEL)["launches"]
+                   for p in profiles)
+    device_us = sum(a.device_time_total for p in profiles
+                    for a in p.key_averages() if MATCHER_KERNEL in a.key)
+    if launches != 8 * n_prof:
+        raise AssertionError(
+            f"the profiles hold {launches} launches of {MATCHER_KERNEL}, "
+            f"{n_prof} mapping steps make {8 * n_prof}")
+    executed = [i for i, c in enumerate(calls) if c["executed"]]
+    plain = [calls[i]["seconds"] for i in executed[1:]
+             if not calls[i]["profiled"]]
+    prof_s = [c["seconds"] for c in calls if c["profiled"]]
+    wall_plain = 1e3 * sum(plain) / len(plain)
+    wall_prof = 1e3 * sum(prof_s) / n_prof
+    busy = summary["device_busy_ms_per_step"]
+    step_s = sum(calls[i]["seconds"] for i in executed)
+    result = {
+        "card": smi, "frames": n, "ok_frames": n_ok,
+        "keyframes": system.tracker.n_kfs,
+        "map_points": int(system.tracker.map.n_mps),
+        "steps_executed": len(executed), "steps_profiled": n_prof,
+        "chunk_seconds": chunk_s, "mapper_calls": calls,
+        "wall_ms_per_step_unprofiled_after_first": wall_plain,
+        "wall_ms_per_step_profiled": wall_prof,
+        "idle_share_vs_profiled_steps": 1.0 - busy / wall_prof,
+        "idle_share_vs_unprofiled_steps": 1.0 - busy / wall_plain,
+        "step_share_of_its_chunks": step_s / sum(chunk_s[i] for i in executed),
+        "step_share_of_the_run": step_s / sum(chunk_s),
+        "matcher_kernel": {"launches": launches,
+                           "mean_device_us": device_us / launches},
+        **summary}
+
+    table = stage_table(summary["stages"], unit="step")
+    print(f"{n_ok}/{n} frames OK, {result['keyframes']} keyframes, "
+          f"{result['map_points']} map points; {len(executed)} mapping steps "
+          f"executed, {n_prof} of them profiled")
+    print(f"wall ms/step: unprofiled steps after the first {wall_plain:.3f}, "
+          f"profiled steps {wall_prof:.3f}")
+    print(f"device busy {busy:.3f} ms/step in "
+          f"{summary['device_ops_per_step']:.0f} device ops/step; "
+          f"{summary['launches_per_step']:.0f} kernel launches/step; idle "
+          f"share {result['idle_share_vs_profiled_steps']:.4f} (profiled "
+          f"steps), {result['idle_share_vs_unprofiled_steps']:.4f} "
+          f"(unprofiled steps)")
+    print(f"mapping is {result['step_share_of_its_chunks']:.4f} of the wall "
+          f"time of the chunks that ran a step and "
+          f"{result['step_share_of_the_run']:.4f} of the whole run")
+    print(f"{MATCHER_KERNEL}: {launches} launches in the profiled steps, mean "
+          f"device time {device_us / launches:.3f} us per launch")
+    print(table)
+    os.makedirs(os.path.dirname(MAP_OUT), exist_ok=True)
+    with open(MAP_OUT, "w") as f:
+        f.write(smi + "\n" + table + "\n\n")
+        f.write(profiles[-1].key_averages().table(
+            sort_by="self_device_time_total", row_limit=40))
+    print(json.dumps(result), flush=True)
+
+
 if __name__ == "__main__":
-    main()
+    import sys
+    if sys.argv[1:] == ["mapping"]:
+        main_mapping()
+    elif sys.argv[1:]:
+        raise SystemExit("usage: python -m orb_slam_2_ros_tpu_torch.profiling "
+                         "[mapping]")
+    else:
+        main()

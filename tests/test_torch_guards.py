@@ -26,6 +26,10 @@ def test_port_imports_no_jax():
     interpreter, pull in neither JAX nor any module of the JAX package."""
     mods = _port_modules() + ["chip_smoke"]
     assert len(mods) >= 20
+    pkg = orb_slam_2_ros_tpu_torch.__name__
+    for new in ("geometry.triangulate", "solvers.ba", "ops.segment",
+                "pipeline.local_mapping", "pipeline.slam", "eval_mapping"):
+        assert f"{pkg}.{new}" in mods, new
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -73,6 +77,26 @@ def test_tracker_defaults_to_the_card_and_raises_without_one(monkeypatch):
     with pytest.raises(RuntimeError, match="device=\"cpu\""):
         tracking.Tracker(SlamConfig())
     assert not built            # no tracker was built, on any device
+
+
+def test_system_defaults_to_the_card_and_raises_without_one(monkeypatch):
+    from orb_slam_2_ros_tpu_torch.config import SlamConfig
+    from orb_slam_2_ros_tpu_torch.map import state as map_state
+    from orb_slam_2_ros_tpu_torch.pipeline import slam
+
+    built = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(map_state, "empty",
+                        lambda *a, **k: built.append(a) or 1 / 0)
+    with pytest.raises(RuntimeError, match="device=\"cpu\""):
+        slam.System(SlamConfig(), enable_loop_closing=False)
+    assert not built            # nothing was built, on any device
+    # loop closing is the reference's default and is not ported: asking for
+    # it, or not saying, raises before anything else happens
+    with pytest.raises(NotImplementedError, match="enable_loop_closing=False"):
+        slam.System(SlamConfig(), enable_loop_closing=True)
+    with pytest.raises(NotImplementedError, match="enable_loop_closing=False"):
+        slam.System(SlamConfig())
 
 
 def test_state_builders_require_a_device():

@@ -64,6 +64,52 @@ def test_stage_ranges_count_every_stage():
     assert all(r.state == tracking.OK for r in tracker.records)
 
 
+def test_mapping_stage_ranges_count_every_part():
+    """The mapping profile's ranges over one executed step on the CPU: each
+    part is seen as often as the step calls it, nested under the step."""
+    from orb_slam_2_ros_tpu_torch.pipeline.local_mapping import LocalMapper
+
+    cam = CameraConfig(width=160, height=120, fx=130.0, fy=130.0, cx=79.5,
+                       cy=59.5, bf=10.0, th_depth=50.0)
+    cfg = SlamConfig(
+        sensor=SENSOR_RGBD, camera=cam,
+        orb=OrbConfig(n_features=200, n_levels=N_LEVELS, max_kps=256),
+        map=MapConfig(max_kfs=4, max_mps=2048, max_kps=256, local_map_cap=256,
+                      tri_neighbors=3, fuse_neighbors=2),
+        tracking=TrackingConfig(min_init_stereo_kps=50))
+    ds = SyntheticRGBD(cfg, n_frames=2, seed=0)
+    tracker = tracking.Tracker(cfg, device="cpu")
+    tracker.process_chunk(np.stack([ds[i][0] for i in range(2)]),
+                          np.stack([ds[i][1] for i in range(2)]),
+                          ds.timestamps[:2])
+    mapper = LocalMapper(cfg, window=2)
+    stages = profiling.MAP_STAGES
+    before = [getattr(mod, attr) for mod, attr, _, _ in stages]
+    with profiling.stage_ranges(stages), torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        mapper.run(tracker.carry.m, tracker.carry.last_mp)
+    assert [getattr(mod, attr) for mod, attr, _, _ in stages] == before
+    assert mapper.n_executed == 1
+
+    s = profiling.summarize(prof.events(), 1, stages, unit="step")
+    per = {row["stage"]: row for row in s["stages"]}
+    assert {name: row["calls_per_step"] for name, row in per.items()} == {
+        "mapping_step": 1, "covisibility": 1, "create_new_map_points": 1,
+        "search_for_triangulation": 3, "triangulate_dlt": 3,
+        "fuse_duplicates": 1, "search_by_projection_pose": 2 * 2,
+        "windowed_bundle_adjustment": 1, "cull_keyframes": 1,
+        "compact_points": 1, "refresh_point_stats": 1}
+    inner = sum(row["host_ms_per_step"] for row in s["stages"]
+                if row["depth"] == 1)
+    assert 0 < inner <= per["mapping_step"]["host_ms_per_step"]
+    assert s["launches_per_step"] == 0 and s["device_busy_ms_per_step"] == 0
+    assert "windowed_bundle_adjustment" in profiling.stage_table(
+        s["stages"], unit="step")
+    numbers = profiling.step_numbers(mapper.last_step)
+    assert all(not isinstance(v, torch.Tensor) for v in numbers.values())
+    assert numbers["n_ba_free"] > 0 and len(numbers["ba_iters"]) == 2
+
+
 def test_kernel_by_name_sums_matching_rows():
     from types import SimpleNamespace as Row
     averages = [
