@@ -43,7 +43,22 @@ Phases, each reported on its own lines:
      wall seconds of tracking and mapping, per step what it did;
   8. the kernel on the arguments of one fusion call (both directions of
      the first neighbour, recorded in phase 7): equality with the plain
-     version, and times as in phase 4.
+     version, and times as in phase 4;
+  9. the full system: a vocabulary (k = 10, 4 levels) trained on the
+     descriptors of every 24th frame of the loop, then ``System(cfg,
+     vocab=voc)``, all defaults (loop closing on, the card), over the same
+     224 frames in chunks of 16 and ``flush()``. Every frame must be OK,
+     the map on the card, at least one loop closed and one global BA
+     finished, every keyframe ingested into the BoW database, the kernel
+     launched 4 times per frame + 8 per mapping step + 3 per Sim3 ladder +
+     9 per correction, the pool invariants of phase 7, every pose and
+     point finite, and the composed ATE below its limit (printed beside
+     the JAX reference's own full-size number). Per chunk the host seconds
+     of tracking, mapping and loop closing, each ladder's outcome and the
+     global BA's progress;
+ 10. the kernel on the arguments of the accepted ladder's three calls and
+     of the correction's first fuse call (16384 x 1536), recorded in
+     phase 9: equality with the plain version, and times as in phase 4.
 
 The frames are rendered on the host by worker processes that end before
 tracking starts. The last two lines are a JSON summary of the kernels and
@@ -70,6 +85,14 @@ CAPTURE_STEP = 3        # the executed mapping step whose fusion calls are kept
 # composed-trajectory ATE of the mapping path, rigid alignment: 1.5 x the
 # 0.088893 m measured on an NVIDIA H100 80GB HBM3 at 700.00 W
 LOOP_ATE_LIMIT_M = 0.133
+# composed-trajectory ATE of the full system (loop closing and global BA
+# on), rigid alignment: 1.5 x the 0.054178 m measured on an NVIDIA H100 80GB
+# HBM3 at 700.00 W. The JAX reference's own full-size run gives 0.0296 m
+# (BENCH_r05.json).
+FULL_ATE_LIMIT_M = 0.0813
+REFERENCE_FULL_ATE_M = 0.0296
+VOCAB_EVERY = 24        # frames whose descriptors train the vocabulary
+LOOP_CLOSING_SHAPE = (16384, 1536)   # Scw widening and SearchAndFuse
 RENDER_WORKERS = 6
 # (N, M, gates) beside the path's two shapes
 EDGE_CASES = ((1531, 1237, "random"), (77, 1, "random"), (64, 32767, "random"),
@@ -92,7 +115,8 @@ def check_kernel(torch, match_kernel, bench):
     """Phase 3. Returns the largest absolute difference (0) and the device
     tensors of the path's two shapes, for phase 4."""
     worst = 0
-    cases = [(N, M, "random") for N, M in bench.PATH_SHAPES]
+    cases = [(N, M, "random")
+             for N, M in bench.PATH_SHAPES + (LOOP_CLOSING_SHAPE,)]
     kept = []
     for seed, (N, M, gates) in enumerate(cases + list(EDGE_CASES)):
         args = tuple(torch.from_numpy(x).cuda()
@@ -196,24 +220,58 @@ def run_main_path(torch, match_kernel, bench, timing):
     return launches, path_args
 
 
-def run_mapping_path(torch, match_kernel, timing):
+def render_loop():
+    """The 224-frame loop that phases 7 and 9 share."""
+    from orb_slam_2_ros_tpu_torch.config import SENSOR_RGBD, SlamConfig
+    from orb_slam_2_ros_tpu_torch.io import render_frames
+
+    cfg = SlamConfig(sensor=SENSOR_RGBD)
+    t0 = time.perf_counter()
+    ds, grays, depths = render_frames(cfg, N_LOOP_FRAMES, RENDER_WORKERS,
+                                      seed=0, trajectory="loop")
+    log(f"rendered {N_LOOP_FRAMES} frames of the loop in "
+        f"{time.perf_counter() - t0:.1f} s (host, {RENDER_WORKERS} processes)")
+    return cfg, ds, grays, depths
+
+
+def composed_ate(system, ds):
+    """ATE of the trajectory composed through the keyframes as they stand,
+    and of the poses as tracked."""
+    from orb_slam_2_ros_tpu_torch.io import ate_rmse
+
+    gt_all = [ds.gt_pose_wc(i) for i in range(len(system.records))]
+    live = float(ate_rmse(np.stack([r.c_w for r in system.records]),
+                          np.stack([c for _, c in gt_all])))
+    poses, ts = system.tracker.composed_trajectory()
+    index = {t: i for i, t in enumerate(ds.timestamps)}
+    ate = float(ate_rmse(np.stack([c for _, c in poses]),
+                         np.stack([gt_all[index[t]][1] for t in ts])))
+    return ate, live
+
+
+def check_pools(m):
+    """The point pool is a live count and no observation dangles."""
+    if int(m.n_mps) != int(m.mp_valid.sum()):
+        raise AssertionError(f"n_mps {int(m.n_mps)} but "
+                             f"{int(m.mp_valid.sum())} valid points")
+    held = m.kf_mp[m.kf_mp >= 0].long()
+    if not bool(m.mp_valid[held].all()):
+        raise AssertionError("an observation names an invalid map point")
+    off_card = [f for f, v in m._asdict().items() if not v.is_cuda]
+    if off_card:
+        raise AssertionError(f"map tensors off the card: {off_card}")
+
+
+def run_mapping_path(torch, match_kernel, timing, loop_seq):
     """Phase 7. Returns the number of kernel launches on the path and the
     matcher's arguments in the two fusion calls of step ``CAPTURE_STEP``
     against its first neighbour."""
-    from orb_slam_2_ros_tpu_torch.config import SENSOR_RGBD, SlamConfig
     from orb_slam_2_ros_tpu_torch.frontend import matcher
-    from orb_slam_2_ros_tpu_torch.io import ate_rmse, render_frames
     from orb_slam_2_ros_tpu_torch.pipeline.slam import System
     from orb_slam_2_ros_tpu_torch.pipeline.tracking import OK
 
-    cfg = SlamConfig(sensor=SENSOR_RGBD)
+    cfg, ds, grays, depths = loop_seq
     n = N_LOOP_FRAMES
-    t0 = time.perf_counter()
-    ds, grays, depths = render_frames(cfg, n, RENDER_WORKERS, seed=0,
-                                      trajectory="loop")
-    log(f"rendered {n} frames of the loop in {time.perf_counter() - t0:.1f} s "
-        f"(host, {RENDER_WORKERS} processes)")
-
     system = System(cfg, enable_loop_closing=False)
     if system.device.type != "cuda":
         raise AssertionError(f"System(cfg) chose {system.device}")
@@ -285,13 +343,7 @@ def run_mapping_path(torch, match_kernel, timing):
     n_ok = sum(r.state == OK for r in recs)
     steps = mapper.n_executed
     m = system.tracker.map
-    gt_all = [ds.gt_pose_wc(i) for i in range(n)]
-    live = float(ate_rmse(np.stack([r.c_w for r in recs]),
-                          np.stack([c for _, c in gt_all])))
-    poses, ts = system.tracker.composed_trajectory()
-    index = {t: i for i, t in enumerate(ds.timestamps)}
-    ate = float(ate_rmse(np.stack([c for _, c in poses]),
-                         np.stack([gt_all[index[t]][1] for t in ts])))
+    ate, live = composed_ate(system, ds)
     map_s = sum(c[0] for c in calls_of if c[1])
     log(f"mapping path: {n_ok}/{n} frames OK, ATE {ate:.6f} m (composed "
         f"through the keyframes; {live:.6f} m as tracked), "
@@ -308,9 +360,6 @@ def run_mapping_path(torch, match_kernel, timing):
     if n_ok != n:
         bad = [i for i, r in enumerate(recs) if r.state != OK]
         raise AssertionError(f"frames not OK: {bad}")
-    off_card = [f for f, v in m._asdict().items() if not v.is_cuda]
-    if off_card:
-        raise AssertionError(f"map tensors off the card: {off_card}")
     if [c[1] for c in calls_of] != kf_chunks:
         raise AssertionError(
             f"the mapper ran on chunks {[c[1] for c in calls_of]}, keyframes "
@@ -322,18 +371,165 @@ def run_mapping_path(torch, match_kernel, timing):
             and totals["n_culled"] > 0):
         raise AssertionError(f"triangulation, fusion or culling idle: "
                              f"{totals}")
-    if int(m.n_mps) != int(m.mp_valid.sum()):
-        raise AssertionError(f"n_mps {int(m.n_mps)} but "
-                             f"{int(m.mp_valid.sum())} valid points")
-    held = m.kf_mp[m.kf_mp >= 0].long()
-    if not bool(m.mp_valid[held].all()):
-        raise AssertionError("an observation names an invalid map point")
+    check_pools(m)
     if not ate < LOOP_ATE_LIMIT_M:
         raise AssertionError(f"ATE {ate} m >= {LOOP_ATE_LIMIT_M} m")
     if len(fusion_args) != 2:
         raise AssertionError(f"step {CAPTURE_STEP} was not reached: "
                              f"{steps} steps")
     return launches, fusion_args
+
+
+def run_full_system(torch, match_kernel, timing, loop_seq):
+    """Phase 9. Returns the number of kernel launches on the path, how many
+    of them loop closing made, and the matcher's arguments in the accepted
+    ladder's three calls and the correction's first fuse call."""
+    from orb_slam_2_ros_tpu_torch.frontend import matcher
+    from orb_slam_2_ros_tpu_torch.pipeline import loop_closing
+    from orb_slam_2_ros_tpu_torch.pipeline.slam import System
+    from orb_slam_2_ros_tpu_torch.pipeline.tracking import OK
+    from orb_slam_2_ros_tpu_torch.place import vocabulary
+
+    cfg, ds, grays, depths = loop_seq
+    n = N_LOOP_FRAMES
+
+    # the in-domain vocabulary, trained on the host; outside every fps
+    t0 = time.perf_counter()
+    voc = vocabulary.train_vocabulary_from_frames(
+        grays[:n], VOCAB_EVERY, cfg, seed=0, device="cuda")
+    log(f"vocabulary: {voc.num_words} words (k = {voc.k}, {voc.levels} "
+        f"levels) from every {VOCAB_EVERY}th of {n} frames in "
+        f"{time.perf_counter() - t0:.1f} s (host k-medians)")
+
+    system = System(cfg, vocab=voc)         # all defaults: loop closing on
+    if system.device.type != "cuda":
+        raise AssertionError(f"System(cfg) chose {system.device}")
+    lc = system.loop_closer
+    captured = {}
+    # launches counted at the kernel's wrapper around every ladder and every
+    # correction of the run, one entry per call
+    measured = {"ladder": [], "correction": []}
+
+    # keep the matcher's arguments of the accepted ladder and of the
+    # correction that follows it
+    sim3_check, apply_correction = (loop_closing._sim3_check,
+                                    loop_closing._apply_correction)
+
+    def recording(fn, key, keep, labels):
+        def wrapped(*args, **kwargs):
+            launched = match_kernel.LAUNCHES
+            with timing.capture_calls(matcher, "masked_best_two") as calls:
+                out = fn(*args, **kwargs)
+            measured[key].append(match_kernel.LAUNCHES - launched)
+            if key == "correction" and key in captured:
+                return out              # the first correction is kept
+            captured[key] = [
+                (label, tuple(a.clone() for a in call))
+                for label, call in zip(labels, calls[:keep])]
+            if key == "correction":     # and the ladder that led to it
+                captured["accepted_ladder"] = captured["ladder"]
+            return out
+        return wrapped
+
+    loop_closing._sim3_check = recording(
+        sim3_check, "ladder", 3,
+        ("path: SearchBySim3, candidate into current keyframe",
+         "path: SearchBySim3, current keyframe into candidate",
+         "path: Scw widening, map points into current keyframe"))
+    loop_closing._apply_correction = recording(
+        apply_correction, "correction", 1,
+        ("path: SearchAndFuse, loop points into current keyframe",))
+    C = system.tracker.CHUNK
+    stages = ("tracking", "local_mapping", "loop_closing")
+    match_kernel.LAUNCHES = 0
+    t_run = time.perf_counter()
+    try:
+        for w0 in list(range(0, n, C)) + [None]:
+            before = {s: system.timers.total_s[s] for s in stages}
+            n_events = len(lc.events)
+            if w0 is None:
+                system.flush()
+                head = "flush   "
+            else:
+                system.track_chunk(grays[w0:w0 + C], depths[w0:w0 + C],
+                                   ds.timestamps[w0:w0 + C])
+                head = f"chunk {w0 // C:2d}"
+            torch.cuda.synchronize()
+            line = head + ": " + ", ".join(
+                f"{s} {system.timers.total_s[s] - before[s]:.3f} s"
+                for s in stages)
+            for e in lc.events[n_events:]:
+                if e["kind"] == "ladder":
+                    line += (f"; ladder candidate {e['cand']} for keyframe "
+                             f"{e['k']}: {e['n_pairs']} BoW pairs, "
+                             f"{e['n_inl']} Sim3 inliers, {e['n_widened']} "
+                             f"widened, "
+                             + ("ACCEPTED" if e["accepted"] else "rejected"))
+                else:
+                    line += (f"; GBA finished, seam residual "
+                             f"{e['seam_before']:.4f} -> "
+                             f"{e['seam_after']:.4f} m"
+                             + (", REJECTED" if e["rejected"] else ""))
+            if lc.gba_running:
+                line += (f"; GBA at {lc._gba_iters_done} of "
+                         f"{cfg.solver.global_ba_iters} iterations")
+            log(line)
+    finally:
+        loop_closing._sim3_check = sim3_check
+        loop_closing._apply_correction = apply_correction
+    run_s = time.perf_counter() - t_run
+    launches = match_kernel.LAUNCHES
+
+    recs = system.records
+    n_ok = sum(r.state == OK for r in recs)
+    m = system.tracker.map
+    steps = system.mapper.n_executed
+    lc_launches = sum(measured["ladder"]) + sum(measured["correction"])
+    ate, live = composed_ate(system, ds)
+    stage_ms = {s: v["total_ms"] for s, v in system.metrics()["stages"].items()}
+    log(f"full system: {n_ok}/{n} frames OK, {lc.n_loops_closed} loops "
+        f"closed, {lc.n_ladders} Sim3 ladders, gba_finished "
+        f"{lc.n_gba_finished}, gba_rejected {lc.n_gba_rejected}, gba_aborts "
+        f"{lc.n_gba_aborts}, ATE {ate:.6f} m composed ({live:.6f} m as "
+        f"tracked; limit {FULL_ATE_LIMIT_M} m; the JAX reference's own run: "
+        f"224/224 OK, 1 loop, gba_finished 1, {REFERENCE_FULL_ATE_M} m), "
+        f"{system.tracker.n_kfs} keyframe rows ({int(m.kf_valid.sum())} "
+        f"valid, {lc._n_ingested} ingested), {int(m.n_mps)} map points, "
+        f"{steps} mapping steps, {launches} matcher kernel launches "
+        f"({lc_launches} by loop closing: {measured['ladder']} in the "
+        f"ladders, {measured['correction']} in the corrections)")
+    log(f"full system: {n / run_s:.2f} fps over the whole run and the flush "
+        f"(host clock); stage ms {json.dumps(stage_ms)}")
+
+    if n_ok != n:
+        bad = [i for i, r in enumerate(recs) if r.state != OK]
+        raise AssertionError(f"frames not OK: {bad}")
+    if lc.n_loops_closed < 1 or lc.n_gba_finished < 1:
+        raise AssertionError(f"{lc.n_loops_closed} loops closed, "
+                             f"{lc.n_gba_finished} global BAs finished")
+    if lc._n_ingested != system.tracker.n_kfs:
+        raise AssertionError(f"{lc._n_ingested} keyframes ingested of "
+                             f"{system.tracker.n_kfs}")
+    if launches != 4 * n + 8 * steps + lc_launches:
+        raise AssertionError(
+            f"matcher kernel launched {launches} times, the path makes "
+            f"{4 * n} + {8 * steps} + {lc_launches}")
+    if (measured["ladder"] != [loop_closing.LADDER_LAUNCHES] * lc.n_ladders
+            or measured["correction"]
+            != [loop_closing.N_FUSE_ROWS] * lc.n_corrections):
+        raise AssertionError(
+            f"launches per ladder and per correction: {measured}, with "
+            f"{lc.n_ladders} ladders and {lc.n_corrections} corrections")
+    check_pools(m)
+    if lc.gba_running or lc._pending_verdict:
+        raise AssertionError("flush left loop-closing work behind")
+    for f in ("kf_q", "kf_t", "mp_pos"):
+        if not bool(torch.isfinite(getattr(m, f)).all()):
+            raise AssertionError(f"{f} is not finite")
+    if not ate < FULL_ATE_LIMIT_M:
+        raise AssertionError(f"ATE {ate} m >= {FULL_ATE_LIMIT_M} m")
+    return (launches, lc_launches,
+            captured["accepted_ladder"] + captured["correction"])
 
 
 def main():
@@ -386,7 +582,9 @@ def main():
                                  floor))
 
     # 7. the mapping path
-    map_launches, fusion_args = run_mapping_path(torch, match_kernel, timing)
+    loop_seq = render_loop()
+    map_launches, fusion_args = run_mapping_path(torch, match_kernel, timing,
+                                                 loop_seq)
 
     # 8. the kernel on one fusion call's own arguments, both directions
     for label, args in fusion_args:
@@ -396,9 +594,26 @@ def main():
         err = max(err, bench.assert_equal(got, want, label))
         timed.append(time_kernel(match_kernel, bench, timing, label, args,
                                  floor))
+
+    # 9. the full system, loop closing on
+    full_launches, lc_launches, loop_args = run_full_system(
+        torch, match_kernel, timing, loop_seq)
+
+    # 10. the kernel on the loop-closing calls' own arguments
+    for label, args in loop_args:
+        got = match_kernel.masked_best_two_cuda(*args)
+        want = match_kernel.masked_best_two_reference(*args)
+        torch.cuda.synchronize()
+        err = max(err, bench.assert_equal(got, want, label))
+        timed.append(time_kernel(match_kernel, bench, timing, label, args,
+                                 floor))
     log(f"matcher kernel launches: {launches} on the tracking path, "
-        f"{map_launches} on the mapping path")
-    launches += map_launches
+        f"{map_launches} on the mapping path, {full_launches} on the full "
+        f"system's path ({lc_launches} of them by loop closing)")
+    by_path = {"tracking": launches, "mapping": map_launches,
+               "full_system": full_launches,
+               "loop_closing_within_full_system": lc_launches}
+    launches += map_launches + full_launches
 
     # the headline numbers are the local-map search's, the largest call of
     # a frame: random gates at its shape; "cases" holds every case
@@ -408,8 +623,7 @@ def main():
         "source": "orb_slam_2_ros_tpu_torch/csrc/masked_best_two.cu",
         "replaces": "orb_slam_2_ros_tpu/ops/pallas_match.py:121",
         "launches": launches, "max_abs_err": err,
-        "launches_by_path": {"tracking": launches - map_launches,
-                             "mapping": map_launches},
+        "launches_by_path": by_path,
         "ms": main_case["graph_us"] / 1e3,
         "plain_ms": main_case["plain_us"] / 1e3,
         "bound_ms": main_case["bound_us"] / 1e3,

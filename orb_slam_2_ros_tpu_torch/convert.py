@@ -1,9 +1,11 @@
-"""Carry map and tracking state between the reference and the port.
+"""Carry map, tracking and loop-closing state between the reference and
+the port.
 
-SLAM has no weights: the map and the tracking context are what two
+SLAM has no weights: the map, the tracking context, the vocabulary tree,
+the loop closer's state and a global BA's snapshot are what two
 implementations must share to compare one step from an identical start.
-The reference's ``MapState`` and ``TrackCarry`` arrive as dicts of numpy
-arrays (``jax.device_get(x._asdict())``; a nested MapState may also be a
+The reference's ``MapState``, ``TrackCarry``, ``Vocabulary``, ``LoopState``
+and ``DenseGBAState`` arrive as dicts of numpy arrays (``jax.device_get(x._asdict())``; a nested MapState may also be a
 NamedTuple of numpy arrays). ``uint32`` descriptor words travel as
 ``int32`` with the same bits. Every function that makes tensors takes the
 device they go to; there is no default.
@@ -22,7 +24,11 @@ import torch
 
 from orb_slam_2_ros_tpu_torch import config
 from orb_slam_2_ros_tpu_torch.map.state import MapState
+from orb_slam_2_ros_tpu_torch.pipeline.loop_closing import LoopState
 from orb_slam_2_ros_tpu_torch.pipeline.tracking import TrackCarry
+from orb_slam_2_ros_tpu_torch.place.database import BowDatabase
+from orb_slam_2_ros_tpu_torch.place.vocabulary import Vocabulary
+from orb_slam_2_ros_tpu_torch.solvers.ba import DenseGBAState
 
 
 def config_from_dict(d) -> config.SlamConfig:
@@ -66,14 +72,43 @@ def track_carry_from_numpy(d, device) -> TrackCarry:
     return TrackCarry(m=map_state_from_numpy(d["m"], device), **vals)
 
 
+def vocabulary_from_numpy(d, device) -> Vocabulary:
+    """A vocabulary tree (the reference's ``Vocabulary`` as a NamedTuple or
+    dict: tensors for ``node_desc`` and ``word_weight``, plain integers
+    for the rest)."""
+    d = _as_dict(d)
+    return Vocabulary(node_desc=_to_tensor(d["node_desc"], device),
+                      word_weight=_to_tensor(d["word_weight"], device),
+                      k=int(d["k"]), levels=int(d["levels"]),
+                      levels_up=int(d["levels_up"]))
+
+
+def loop_state_from_numpy(d, device) -> LoopState:
+    d = _as_dict(d)
+    db = _as_dict(d["db"])
+    vals = {f: _to_tensor(d[f], device) for f in LoopState._fields if f != "db"}
+    return LoopState(db=BowDatabase(**{f: _to_tensor(db[f], device)
+                                       for f in BowDatabase._fields}), **vals)
+
+
+def dense_gba_state_from_numpy(d, device) -> DenseGBAState:
+    d = _as_dict(d)
+    return DenseGBAState(**{f: _to_tensor(d[f], device)
+                            for f in DenseGBAState._fields})
+
+
 def to_numpy(x):
-    """Port NamedTuple (MapState, TrackCarry, Frame, ...) -> dict of numpy
-    arrays, nested NamedTuples as nested dicts. ``desc`` fields (int32
-    words) come back as uint32, the reference's dtype."""
+    """Port NamedTuple (MapState, TrackCarry, LoopState, Vocabulary, ...)
+    -> dict of numpy arrays, nested NamedTuples as nested dicts, plain
+    numbers as they are. ``desc`` fields (int32 words) come back as
+    uint32, the reference's dtype."""
     out = {}
     for name, v in x._asdict().items():
         if hasattr(v, "_asdict"):
             out[name] = to_numpy(v)
+            continue
+        if not isinstance(v, torch.Tensor):
+            out[name] = v
             continue
         a = v.detach().cpu().numpy()
         if name.endswith("desc") and a.dtype == np.int32:

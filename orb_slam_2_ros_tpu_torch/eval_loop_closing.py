@@ -1,0 +1,136 @@
+"""The full system on the card, loop closing on, beside the JAX reference's
+own full-size numbers.
+
+    python -m orb_slam_2_ros_tpu_torch.eval_loop_closing [--skip-hard]
+
+Two sequences at the reference operating point on ``cuda``, each through
+``System(cfg, vocab=voc)`` with all defaults, in chunks of 16, then
+``flush()``:
+
+- the 224-frame loop of ``chip_smoke.py`` (1.25 turns, one revisit), twice:
+  the RANSAC draw comes from a ``torch.Generator`` seeded from ``cfg.seed``
+  and every float sum with repeated targets is made in a fixed order, so the
+  two runs must agree in every count and in the ATE;
+- the hard pass (288 frames, 2.25 turns so that every viewpoint revisits
+  twice, under a +-25% exposure sweep), once.
+
+The vocabulary (k = 10, 4 levels) is trained once on the host from the
+descriptors of every 24th frame of the loop and serves both sequences. For
+each pass: frames tracked, loops closed, Sim3 ladders run, global BAs
+finished, rejected and aborted, the ATE (rigid alignment) composed through
+the keyframes' final poses and as tracked, the counts of the map, the host
+seconds per stage, and each ladder's and each global BA's outcome. The JAX
+package's own run of the same two sequences (``BENCH_r05.json``: counts and
+ATE, taken with another backend, so no time is compared) is printed beside
+them. The last line is a JSON summary, also written to
+``chiprun_out/eval_loop_closing.json``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from orb_slam_2_ros_tpu_torch.config import SENSOR_RGBD, SlamConfig
+from orb_slam_2_ros_tpu_torch.io import ate_rmse, render_frames
+from orb_slam_2_ros_tpu_torch.pipeline.slam import System
+from orb_slam_2_ros_tpu_torch.pipeline.tracking import OK
+from orb_slam_2_ros_tpu_torch.place import vocabulary
+
+N_LOOP, N_HARD = 224, 288
+VOCAB_EVERY = 24
+OUT = os.path.join("chiprun_out", "eval_loop_closing.json")
+REFERENCE = {
+    "loop": {"ok_frames": 224, "loops_closed": 1, "gba_finished": 1,
+             "ate_composed_m": 0.0296},
+    "hard": {"ok_frames": 288, "loops_closed": 2, "ate_composed_m": 0.1786}}
+COUNTS = ("ok_frames", "loops_closed", "ladders", "gba_finished",
+          "gba_rejected", "gba_aborts", "keyframe_rows", "keyframes_valid",
+          "n_mps", "points_culled", "mapping_steps")
+
+
+def run_pass(name, cfg, voc, ds, grays, depths):
+    n = len(grays)
+    system = System(cfg, vocab=voc)
+    C = system.tracker.CHUNK
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for w0 in range(0, n, C):
+        system.track_chunk(grays[w0:w0 + C], depths[w0:w0 + C],
+                           ds.timestamps[w0:w0 + C])
+    system.flush()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    recs = system.records
+    gt = [ds.gt_pose_wc(i)[1] for i in range(n)]
+    poses, ts = system.tracker.composed_trajectory()
+    index = {t: i for i, t in enumerate(ds.timestamps)}
+    m = system.tracker.map
+    lc = system.loop_closer
+    out = {
+        "pass": name, "frames": n,
+        "ok_frames": sum(r.state == OK for r in recs),
+        "loops_closed": lc.n_loops_closed, "ladders": lc.n_ladders,
+        "gba_finished": lc.n_gba_finished, "gba_rejected": lc.n_gba_rejected,
+        "gba_aborts": lc.n_gba_aborts,
+        "ate_composed_m": float(ate_rmse(
+            np.stack([c for _, c in poses]),
+            np.stack([gt[index[t]] for t in ts]))),
+        "ate_tracked_m": float(ate_rmse(np.stack([r.c_w for r in recs]),
+                                        np.stack(gt))),
+        "keyframe_rows": system.tracker.n_kfs,
+        "keyframes_valid": int(m.kf_valid.sum()),
+        "n_mps": int(m.n_mps), "points_culled": system.n_culled_total,
+        "mapping_steps": system.mapper.n_executed,
+        "fps": n / seconds,
+        "stage_ms": {s: v["total_ms"]
+                     for s, v in system.metrics()["stages"].items()},
+        "events": lc.events}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("eval_loop_closing: no CUDA device")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+    cfg = SlamConfig(sensor=SENSOR_RGBD)
+    ds, grays, depths = render_frames(cfg, N_LOOP, workers=6, seed=0,
+                                      trajectory="loop")
+    t0 = time.perf_counter()
+    voc = vocabulary.train_vocabulary_from_frames(
+        grays, VOCAB_EVERY, cfg, seed=0, device="cuda")
+    print(f"vocabulary of {voc.num_words} words trained in "
+          f"{time.perf_counter() - t0:.1f} s on the host", flush=True)
+    passes = [run_pass("loop, first run", cfg, voc, ds, grays, depths),
+              run_pass("loop, second run", cfg, voc, ds, grays, depths)]
+    differ = [k for k in COUNTS + ("ate_composed_m",)
+              if passes[0][k] != passes[1][k]]
+    if differ:
+        raise AssertionError(f"two runs of the system differ in {differ}")
+    if "--skip-hard" not in sys.argv[1:]:
+        ds_h, grays_h, depths_h = render_frames(
+            cfg, N_HARD, workers=6, seed=0, trajectory="twoloop",
+            exposure_drift=0.25)
+        passes.append(run_pass("hard pass", cfg, voc, ds_h, grays_h,
+                               depths_h))
+    result = {"card": smi, "passes": passes,
+              "loop_runs_agree_in": list(COUNTS) + ["ate_composed_m"],
+              "reference_bench_r05": REFERENCE}
+    os.makedirs(os.path.dirname(OUT), exist_ok=True)
+    with open(OUT, "w") as f:
+        json.dump(result, f)
+    print(json.dumps(result), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,4 +1,4 @@
-"""Descriptor matching for the tracking and local-mapping steps.
+"""Descriptor matching for tracking, local mapping and loop closing.
 
 Port of the RGB-D path's part of ``orb_slam_2_ros_tpu/frontend/
 matcher.py``. Each projection search builds per-row and per-column metadata
@@ -9,8 +9,9 @@ accept gates, the rotation histogram and a scatter-min conflict resolution.
 ``search_reference_kf`` goes through the same kernel with its gates opened
 (infinite radius, octave band [-1, 99], no stereo coordinate), which gives
 the reference's ungated masked ``best_two`` without an (N, M) matrix.
-``search_for_triangulation`` gates by the epipolar line, which the kernel's
-metadata cannot express, and works on the (N, M) Hamming matrix in PyTorch.
+``search_for_triangulation`` gates by the epipolar line and
+``search_by_node`` by vocabulary-node equality, which the kernel's metadata
+cannot express; both work on the (N, M) Hamming matrix in PyTorch.
 """
 
 from __future__ import annotations
@@ -175,12 +176,15 @@ def search_by_projection_pose(mp_world: torch.Tensor, mp_desc: torch.Tensor,
                               cfg: SlamConfig, th: float,
                               src_angle: torch.Tensor = None,
                               check_rotation: bool = True,
+                              exclude_kp: torch.Tensor = None,
                               widen_below: int = 0):
     """Project known 3D points (with a source octave each) into the frame
     under pose (q, t) and match in a window th*scale^octave: the
     last-frame -> current SearchByProjection (``ORBmatcher.cc:1330-1472``)
     and, with ``check_rotation=False`` and no ``src_angle``, the projection
-    search of landmark fusion (``ORBmatcher::Fuse``).
+    search of landmark fusion (``ORBmatcher::Fuse``). ``exclude_kp``
+    (max_kps,) bool takes keypoints of the frame out of the search (loop
+    closing's SearchBySim3 and Scw widening fill only unmatched keypoints).
 
     widen_below > 0 re-matches with a 2x window when fewer than that many
     matches pass (``Tracking.cc:1002-1016``). Both passes always run and a
@@ -194,12 +198,13 @@ def search_by_projection_pose(mp_world: torch.Tensor, mp_desc: torch.Tensor,
     ok = src_valid & (z > 0) & camera.in_image(cam, uv)
     sf = torch.pow(torch.full_like(z, cfg.orb.scale_factor),
                    src_octave.to(torch.float32))
+    col_ok = frame.valid if exclude_kp is None else frame.valid & ~exclude_kp
 
     def attempt(radius):
         best_idx, best_d, _, _ = fused_best_two(
             mp_desc, frame.desc, uv, radius, src_octave - 1, src_octave + 1,
             uvr[..., 2], ok, frame.uv, frame.kps.octave, frame.u_right,
-            frame.valid)
+            col_ok)
         accept = (best_d <= cfg.matcher.th_high) & ok
         if check_rotation and src_angle is not None:
             rot = _degrees(src_angle - frame.kps.angle[best_idx.long()])
@@ -215,6 +220,37 @@ def search_by_projection_pose(mp_world: torch.Tensor, mp_desc: torch.Tensor,
         best_d = torch.where(use_wide, bd2, best_d)
         accept = torch.where(use_wide, ac2, accept)
     return resolve_conflicts(best_idx, best_d, accept, frame.uv.shape[0])
+
+
+def search_by_node(desc_q, node_q, valid_q, angle_q, desc_t, node_t, valid_t,
+                   angle_t, cfg: SlamConfig, nn_ratio: float = None,
+                   check_rotation: bool = True):
+    """BoW-accelerated matching (``SearchByBoW``, ``ORBmatcher.cc:160-289``
+    and ``:524-657``): candidate pairs must share a vocabulary node (the
+    FeatureVector gate). As in the reference this runs outside the matcher
+    kernel, on the (N, M) Hamming matrix: node equality is not a gate its
+    metadata can express. Returns (t_to_q (M,) int32, t_dist)."""
+    m = cfg.matcher
+    nn = m.nn_ratio_bow if nn_ratio is None else nn_ratio
+    mask = ((node_q[:, None] == node_t[None, :]) & (node_q[:, None] >= 0)
+            & valid_q[:, None] & valid_t[None, :])
+    D = hamming_matrix(desc_q, desc_t)
+    # ties to the lowest column by a composite key, as in
+    # ``search_for_triangulation``
+    cols = torch.arange(D.shape[1], dtype=torch.int32, device=D.device)
+    key = torch.where(mask, D, torch.full_like(D, INF_DIST)) * (1 << 15) + cols
+    best = torch.min(key, dim=1).values
+    best_idx, best_d = best & ((1 << 15) - 1), best >> 15
+    key2 = key.scatter(1, best_idx.to(torch.int64)[:, None],
+                       INF_DIST * (1 << 15) + (1 << 15) - 1)
+    second_d = torch.min(key2, dim=1).values >> 15
+    accept = ((best_d <= m.th_low)
+              & (best_d.to(torch.float32) < nn * second_d.to(torch.float32))
+              & valid_q)
+    if check_rotation:
+        rot = _degrees(angle_q - angle_t[best_idx.to(torch.int64)])
+        accept = rotation_consistency(rot, accept)
+    return resolve_conflicts(best_idx, best_d, accept, desc_t.shape[0])
 
 
 def search_reference_kf(ref_desc: torch.Tensor, ref_valid: torch.Tensor,

@@ -1,18 +1,24 @@
-"""System facade: tracking plus local mapping behind one entry point.
+"""System facade: tracking, local mapping and loop closing behind one
+entry point.
 
 Port of the part of ``orb_slam_2_ros_tpu/pipeline/slam.py`` (``System.cc``)
-that the RGB-D path without loop closing runs: construction wires the
-tracker and the local mapper, ``track_rgbd`` / ``track_chunk`` replace
-``TrackRGBD`` (``System.cc:196``). Per tracker chunk the frames are tracked,
-then one mapping step runs if the chunk inserted a keyframe, and the map
-and the tracker's last-frame associations go back into the carry.
+that the RGB-D path runs: construction wires the tracker, the local mapper
+and the loop closer, ``track_rgbd`` / ``track_chunk`` replace ``TrackRGBD``
+(``System.cc:196``). Per tracker chunk the frames are tracked, one mapping
+step runs if the chunk inserted a keyframe, the loop closer ingests the new
+keyframes and detects, an in-flight global BA advances by one chunk, and
+the detection verdict of the PREVIOUS chunk is consumed: a correction lands
+one chunk after its detection, on a schedule that depends on the chunk
+count alone.
 
-Not ported yet, each raising ``NotImplementedError``: loop closing and the
-global BA (``enable_loop_closing=True``, the reference's default, so a
-caller passes ``False``), a vocabulary, map loading and saving, the
-monocular and stereo sensors, localization-only mode. Relocalization is not
-ported either: a LOST frame is recorded and tracking goes on, as
-``Tracker`` alone does.
+Loop closing is on by default, as in the reference. Without a ``vocab`` the
+system trains one from the descriptors of its first chunk's frames
+(``_bootstrap_vocabulary``).
+
+Not ported yet, each raising ``NotImplementedError``: map loading and
+saving, the monocular and stereo sensors, localization-only mode.
+Relocalization is not ported either: a LOST frame is recorded and tracking
+goes on, as ``Tracker`` alone does.
 """
 
 from __future__ import annotations
@@ -25,8 +31,31 @@ import torch
 from orb_slam_2_ros_tpu_torch.config import SlamConfig
 from orb_slam_2_ros_tpu_torch.map import state as map_state
 from orb_slam_2_ros_tpu_torch.pipeline.local_mapping import LocalMapper
+from orb_slam_2_ros_tpu_torch.pipeline.loop_closing import LoopCloser
+from orb_slam_2_ros_tpu_torch.pipeline.metrics import StageTimers
+from orb_slam_2_ros_tpu_torch.place import vocabulary
 from orb_slam_2_ros_tpu_torch.pipeline.tracking import (
     NOT_INITIALIZED, FrameRecord, Tracker, _quat_mul_np, _quat_rotate_np)
+
+
+def default_vocabulary(cfg: SlamConfig, device, warn: bool = True):
+    """Train a small deterministic vocabulary from seeded random
+    descriptors. A LAST RESORT: random 256-bit codes cover descriptor space
+    uniformly, which gates matching adequately but retrieves far worse than
+    a tree trained on real imagery. ``System`` without a vocabulary trains
+    one from its first chunk's own descriptors and comes here only when
+    those are too few."""
+    if warn:
+        import warnings
+        warnings.warn(
+            "No vocabulary provided: falling back to a RANDOM-descriptor "
+            "tree. Loop-closing retrieval will be weak; pass a trained "
+            "vocabulary (place.vocabulary.train_vocabulary) or let System "
+            "bootstrap from tracked imagery.", stacklevel=2)
+    rng = np.random.default_rng(cfg.seed)
+    train = rng.integers(0, 2 ** 32, (8192, 8), dtype=np.uint32)
+    return vocabulary.train_vocabulary(train, cfg, seed=cfg.seed,
+                                       device=device)
 
 
 class System:
@@ -41,17 +70,10 @@ class System:
     def __init__(self, cfg: SlamConfig, enable_local_ba: bool = True,
                  ba_window: int = 10, load_map=None,
                  enable_loop_closing: bool = True, vocab=None, device=None):
-        if enable_loop_closing:
-            raise NotImplementedError(
-                "loop closing is not ported yet; pass "
-                "enable_loop_closing=False")
-        if vocab is not None:
-            raise NotImplementedError(
-                "a vocabulary serves loop closing and relocalization, which "
-                "are not ported yet")
         if load_map is not None:
             raise NotImplementedError("map loading is not ported yet")
         self.cfg = cfg
+        self.timers = StageTimers()
         # the tracker rejects the sensors and modes that are not ported and
         # resolves the device
         self.tracker = Tracker(cfg, device=device)
@@ -62,6 +84,41 @@ class System:
         self.n_kf_compactions = 0
         self._culled_dev = []      # device scalars, summed when asked for
         self._frame_counter = 0
+        # the loop closer owns the BoW index; relocalization, which would
+        # share it, is not ported
+        self.loop_closing_enabled = enable_loop_closing
+        self.loop_closer = None
+        self.relocalizer = None
+        self.vocab = vocab
+        # no vocabulary given: the retrieval stack is built at the first
+        # tracked chunk, around a tree trained on that chunk's descriptors
+        self._vocab_pending = enable_loop_closing and vocab is None
+        if enable_loop_closing and vocab is not None:
+            self._build_retrieval_stack()
+
+    def _build_retrieval_stack(self):
+        """The loop closer around ``self.vocab``, its global BA stepped in
+        the background, one chunk per tracking chunk."""
+        self.loop_closer = LoopCloser(self.cfg, self.vocab,
+                                      background_gba=True)
+
+    def _bootstrap_vocabulary(self, grays):
+        """Train the vocabulary from the first tracked chunk's descriptors
+        (up to 4 frames sampled across the batch, extracted from the float
+        gray image as the reference's ``build_mono`` extracts them), then
+        build the retrieval stack. A one-time host event before any
+        keyframe is BoW-ingested."""
+        n = len(grays)
+        train = vocabulary.frame_descriptors(
+            grays, list(range(0, n, max(1, n // 4)))[:4], self.cfg,
+            self.device)
+        if len(train) < 64:
+            self.vocab = default_vocabulary(self.cfg, self.device)
+        else:
+            self.vocab = vocabulary.train_vocabulary(
+                train, self.cfg, seed=self.cfg.seed, device=self.device)
+        self._build_retrieval_stack()
+        self._vocab_pending = False
 
     # ------------------------------------------------------------- tracking
 
@@ -72,33 +129,62 @@ class System:
     def track_chunk(self, grays, depths, timestamps=None) -> List[FrameRecord]:
         """Track a batch of frames, grays/depths (N, H, W) float images
         (metres for depth): per tracker chunk, track, then one mapping
-        step. The step runs only if the chunk inserted a keyframe; that is
-        decided from the keyframe count that the chunk's own records carry
-        (``ref_kf`` of the last frame), so the gate reads nothing more
-        from the device."""
+        step, then loop closing. The mapping step runs only if the chunk
+        inserted a keyframe; that, and how many keyframes wait for the loop
+        closer, is decided from the keyframe count that the chunk's own
+        records carry (``ref_kf`` of the last frame), so neither gate reads
+        anything more from the device."""
         grays = np.asarray(grays, np.float32)
         depths = np.asarray(depths, np.float32)
+        if self._vocab_pending:
+            self._bootstrap_vocabulary(grays)
         if timestamps is None:
             timestamps = [self._frame_counter + i / 30.0
                           for i in range(len(grays))]
         recs: List[FrameRecord] = []
         C = self.tracker.CHUNK
         K = self.cfg.map.max_kfs
+        lc = self.loop_closer
         for w0 in range(0, len(grays), C):
             w1 = min(w0 + C, len(grays))
-            chunk = self.tracker.process_chunk(
-                grays[w0:w1], depths[w0:w1], timestamps[w0:w1])
+            with self.timers.time("tracking"):
+                chunk = self.tracker.process_chunk(
+                    grays[w0:w1], depths[w0:w1], timestamps[w0:w1])
             recs.extend(chunk)
-            if self.mapper is None:
-                continue
             n_kfs = chunk[-1].ref_kf + 1
-            carry = self.tracker.carry
-            m2, n_culled, last_mp2 = self.mapper.run(
-                carry.m, carry.last_mp, allow_compact=True, full=True,
-                n_kfs=n_kfs)
-            self.tracker.carry = carry._replace(m=m2, last_mp=last_mp2)
-            self._culled_dev.append(n_culled)
-            if n_kfs >= int(self.KF_COMPACT_WATERMARK * K):
+            # point ids stay frozen while a global BA holds a snapshot
+            gba_running = lc is not None and lc.gba_running
+            if self.mapper is not None:
+                with self.timers.time("local_mapping"):
+                    carry = self.tracker.carry
+                    m2, n_culled, last_mp2 = self.mapper.run(
+                        carry.m, carry.last_mp,
+                        allow_compact=not gba_running, full=True,
+                        n_kfs=n_kfs)
+                    self.tracker.carry = carry._replace(m=m2,
+                                                        last_mp=last_mp2)
+                    self._culled_dev.append(n_culled)
+            if lc is not None:
+                with self.timers.time("loop_closing"):
+                    # detection only: its verdict is consumed one chunk on
+                    lc.dispatch(self.tracker.carry.m, n_kfs)
+                    # background GBA: one chunk per tracking chunk, so the
+                    # refinement never stalls the camera (the reference's
+                    # detached GBA thread, LoopClosing.cc:689)
+                    m3, finished = lc.step_background(self.tracker.carry.m)
+                    if finished:
+                        self.tracker.adopt_map(m3)
+                    verdict = lc.pop_lagged_verdict()
+                    if verdict is not None:
+                        m2, closed = lc.consume_host(self.tracker.carry.m,
+                                                     *verdict)
+                        if closed:
+                            self.tracker.adopt_map(m2)
+            # keyframe-pool recycling, only while no GBA runs (its
+            # snapshot indexes the rows as they are)
+            if (self.mapper is not None
+                    and not (lc is not None and lc.gba_running)
+                    and n_kfs >= int(self.KF_COMPACT_WATERMARK * K)):
                 self.compact_keyframe_pool()
         self._frame_counter += len(grays)
         return recs
@@ -148,6 +234,8 @@ class System:
         # again would skip local mapping
         if self.mapper is not None:
             self.mapper.rearm()
+        if self.loop_closer is not None:
+            self.loop_closer.apply_kf_compaction(remap_np)
         self.n_kf_compactions += 1
         return n_freed
 
@@ -159,10 +247,24 @@ class System:
         self.tracker.state = NOT_INITIALIZED
         if self.mapper is not None:
             self.mapper.rearm()
+        if self.loop_closer is not None:
+            self.loop_closer.reset()
         self.n_resets += 1
 
     def flush(self) -> List[FrameRecord]:
-        """Fetch all pending frame records."""
+        """Drain the deferred work (queued loop-detection verdicts, an
+        in-flight global BA) and fetch all pending frame records. Call at
+        the end of a sequence, before reading trajectories or loop
+        counters: they then reflect the COMPLETED refinement."""
+        lc = self.loop_closer
+        if lc is not None:
+            with self.timers.time("loop_closing"):
+                m2, closed = lc.finish_pending(self.tracker.carry.m)
+                if closed:
+                    self.tracker.adopt_map(m2)
+                if lc.gba_running:
+                    self.tracker.adopt_map(
+                        lc.run_gba_to_completion(self.tracker.carry.m))
         return self.tracker.flush()
 
     # -------------------------------------------------------------- getters
@@ -170,6 +272,30 @@ class System:
     @property
     def records(self):
         return self.tracker.records
+
+    @property
+    def last_big_change_idx(self) -> int:
+        """Counter of global map rewrites (loop corrections and resets).
+        Consumers compare it against a remembered value to decide when to
+        re-read the whole map (``Map::GetLastBigChangeIdx``)."""
+        loops = self.loop_closer.n_loops_closed if self.loop_closer else 0
+        return loops + self.n_resets
+
+    def metrics(self) -> dict:
+        """Run summary: counters + per-stage host timing (reads the
+        device)."""
+        m = self.tracker.map
+        lc = self.loop_closer
+        return {
+            "frames": len(self.tracker.records),
+            "big_change_idx": self.last_big_change_idx,
+            "keyframes": int(m.n_kfs),
+            "map_points": int(m.mp_valid.sum()),
+            "points_culled": self.n_culled_total,
+            "loops_closed": lc.n_loops_closed if lc else 0,
+            "resets": self.n_resets,
+            "stages": self.timers.summary(),
+        }
 
     @property
     def n_culled_total(self) -> int:

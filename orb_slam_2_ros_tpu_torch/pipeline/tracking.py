@@ -397,6 +397,12 @@ class Tracker:
         self.state = recs[-1].state
         return recs
 
+    def adopt_map(self, m: map_state.MapState):
+        """Swap in an externally updated map (loop correction, global BA),
+        keeping the tracking context: the current pose and the motion model
+        are not corrected, as in the reference."""
+        self.carry = self.carry._replace(m=m)
+
     # ------------------------------------------------------------ trajectory
 
     def trajectory_wc(self):

@@ -1,7 +1,9 @@
-"""Where the time goes on the card: a tracked frame, or a mapping step.
+"""Where the time goes on the card: a tracked frame, a mapping step, or
+loop closing's programs.
 
     python -m orb_slam_2_ros_tpu_torch.profiling            # tracking
     python -m orb_slam_2_ros_tpu_torch.profiling mapping    # local mapping
+    python -m orb_slam_2_ros_tpu_torch.profiling loop       # loop closing
 
 **Tracking.** Tracks the first 72 frames of ``chip_smoke.py``'s 96-frame synthetic orbit
 at the reference operating point on ``cuda``. Frames 0-63 run first, in
@@ -44,6 +46,24 @@ idle share, the stage table, and the matcher kernel's launches and mean
 device time; and the executed steps' share of their chunks' wall time and
 of the whole run's. The table and the top kernels also go to
 ``chiprun_out/profile_mapping.txt``; the last line is a JSON summary.
+
+**Loop.** Trains the in-domain vocabulary and runs ``System(cfg,
+vocab=voc)``, all defaults, over the same loop in chunks of 16, then
+``flush()``. Every call of the loop closer (``dispatch``: ingest + detect;
+``consume_host`` with a candidate: the Sim3 ladder and, if accepted, the
+correction; ``step_background`` with a global BA in flight: one chunk of 5
+iterations, the last also the reconciliation) is timed with the host clock
+between two synchronisations. The dispatches named in
+``PROFILED_DISPATCHES``, every ladder and correction, and the first GBA
+chunk run under ``torch.profiler`` with a ``record_function`` range around
+each program and its parts (ingest/detect: transform, query, candidate
+selection; the ladder: BoW pairing, RANSAC, the projection searches, the LM
+refinement; the correction: the essential graph, the point correction, the
+fuse sweep's searches; a GBA chunk). It prints per kind of call the wall ms
+of the unprofiled and profiled calls, the device busy ms, launches, idle
+share and stage table per call, and the matcher kernel's launches and mean
+device time. The tables also go to ``chiprun_out/profile_loop.txt``; the
+last line is a JSON summary.
 """
 
 from __future__ import annotations
@@ -64,9 +84,11 @@ from orb_slam_2_ros_tpu_torch.geometry import triangulate
 from orb_slam_2_ros_tpu_torch.io import SyntheticRGBD
 from orb_slam_2_ros_tpu_torch.map import state as map_state
 from orb_slam_2_ros_tpu_torch.ops import fast
-from orb_slam_2_ros_tpu_torch.pipeline import local_mapping, tracking
+from orb_slam_2_ros_tpu_torch.pipeline import (local_mapping, loop_closing,
+                                               tracking)
 from orb_slam_2_ros_tpu_torch.pipeline.slam import System
-from orb_slam_2_ros_tpu_torch.solvers import ba
+from orb_slam_2_ros_tpu_torch.place import database, vocabulary
+from orb_slam_2_ros_tpu_torch.solvers import ba, pose_graph, sim3_solver
 
 FRAMES = 72
 WINDOW = 4      # frames in the profiled and in the unprofiled window
@@ -74,6 +96,9 @@ OUT = os.path.join("chiprun_out", "profile_tracking.txt")
 MAP_FRAMES = 224
 MAP_OUT = os.path.join("chiprun_out", "profile_mapping.txt")
 PROFILED_STEPS = (2, 4, 6)      # executed mapping steps, counted from 0
+LOOP_OUT = os.path.join("chiprun_out", "profile_loop.txt")
+PROFILED_DISPATCHES = (4, 8)    # calls of ``dispatch``, counted from 0
+VOCAB_EVERY = 24                # frames whose descriptors train the vocabulary
 MATCHER_KERNEL = "masked_best_two_kernel"    # its name in the profile
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx")
@@ -111,6 +136,27 @@ MAP_STAGES = (
     (local_mapping, "cull_keyframes", "cull_keyframes", 1),
     (map_state, "compact_points", "compact_points", 1),
     (map_state, "refresh_point_stats", "refresh_point_stats", 1),
+)
+# loop closing's programs and their parts; a part that several programs
+# call (covisibility, the projection search) is one row
+LOOP_STAGES = (
+    (loop_closing, "_ingest_and_detect", "ingest_and_detect", 0),
+    (map_state, "covisibility", "covisibility", 1),
+    (vocabulary, "transform", "transform", 1),
+    (vocabulary, "bow_weights", "bow_weights", 1),
+    (database, "query", "query", 1),
+    (database, "detect_candidates", "detect_candidates", 1),
+    (loop_closing, "_sim3_check", "sim3_ladder", 0),
+    (matcher, "search_by_node", "search_by_node", 1),
+    (sim3_solver, "ransac_sim3", "ransac_sim3", 1),
+    (matcher, "search_by_projection_pose", "search_by_projection_pose", 1),
+    (sim3_solver, "refine_sim3_lm", "refine_sim3_lm", 1),
+    (loop_closing, "_apply_correction", "apply_correction", 0),
+    (pose_graph, "optimize_essential_graph", "essential_graph", 1),
+    (pose_graph, "correct_points", "correct_points", 1),
+    (loop_closing, "_gba_start", "gba_start", 0),
+    (loop_closing, "_gba_step", "gba_chunk", 0),
+    (loop_closing, "_gba_finish", "gba_finish", 0),
 )
 
 
@@ -413,12 +459,128 @@ def main_mapping():
     print(json.dumps(result), flush=True)
 
 
+def main_loop():
+    smi = _card()
+    cfg = SlamConfig(sensor=SENSOR_RGBD)
+    n = MAP_FRAMES
+    ds = SyntheticRGBD(cfg, n_frames=n, seed=0, trajectory="loop")
+    grays = np.stack([ds[i][0] for i in range(n)])
+    depths = np.stack([ds[i][1] for i in range(n)])
+    voc = vocabulary.train_vocabulary_from_frames(
+        grays, VOCAB_EVERY, cfg, seed=0, device="cuda")
+    system = System(cfg, vocab=voc)
+    lc = system.loop_closer
+    C = system.tracker.CHUNK
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    calls = []          # every timed call: kind, seconds, profiled
+    profiles = {"dispatch": [], "ladder": [], "gba_chunk": []}
+
+    def timed(kind, fn, profile_it):
+        def wrapped(*args, **kwargs):
+            work, label = kind(args)
+            if not work:
+                return fn(*args, **kwargs)
+            profiled = profile_it(label)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if profiled:
+                with stage_ranges(LOOP_STAGES), \
+                        torch.profiler.profile(activities=acts) as prof:
+                    out = fn(*args, **kwargs)
+                    torch.cuda.synchronize()
+                profiles[label].append(prof)
+            else:
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+            calls.append({"kind": label, "profiled": profiled,
+                          "seconds": time.perf_counter() - t0})
+            return out
+        return wrapped
+
+    n_dispatch = [0]
+
+    def dispatch_profiled(_):
+        n_dispatch[0] += 1
+        return n_dispatch[0] - 1 in PROFILED_DISPATCHES
+
+    lc.dispatch = timed(lambda a: (True, "dispatch"), lc.dispatch,
+                        dispatch_profiled)
+    lc.consume_host = timed(lambda a: (a[1] >= 0, "ladder"), lc.consume_host,
+                            lambda _: True)
+    lc.step_background = timed(
+        lambda a: (lc.gba_running, "gba_chunk"), lc.step_background,
+        lambda _: not profiles["gba_chunk"])
+    for w0 in range(0, n, C):
+        system.track_chunk(grays[w0:w0 + C], depths[w0:w0 + C],
+                           ds.timestamps[w0:w0 + C])
+    system.flush()
+    n_ok = sum(r.state == tracking.OK for r in system.records)
+
+    result = {"card": smi, "frames": n, "ok_frames": n_ok,
+              "loops_closed": lc.n_loops_closed, "ladders": lc.n_ladders,
+              "corrections": lc.n_corrections,
+              "gba_finished": lc.n_gba_finished, "events": lc.events,
+              "calls": calls, "kinds": {}}
+    text = [smi]
+    print(f"{n_ok}/{n} frames OK, {lc.n_loops_closed} loops closed, "
+          f"{lc.n_ladders} ladders, {lc.n_corrections} corrections, "
+          f"{lc.n_gba_finished} global BAs finished")
+    for kind, profs in profiles.items():
+        mine = [c for c in calls if c["kind"] == kind]
+        plain = [1e3 * c["seconds"] for c in mine if not c["profiled"]]
+        prof_ms = [1e3 * c["seconds"] for c in mine if c["profiled"]]
+        if not profs:
+            print(f"{kind}: no call was profiled ({len(mine)} calls)")
+            continue
+        events = [e for p in profs for e in p.events()]
+        summary = summarize(events, len(profs), LOOP_STAGES, unit="call")
+        launches = sum(kernel_by_name(p.key_averages(),
+                                      MATCHER_KERNEL)["launches"]
+                       for p in profs)
+        device_us = sum(a.device_time_total for p in profs
+                        for a in p.key_averages() if MATCHER_KERNEL in a.key)
+        wall_prof = sum(prof_ms) / len(prof_ms)
+        busy = summary["device_busy_ms_per_call"]
+        # a table of the stages this kind of call ran
+        ran = [r for r in summary["stages"] if r["calls_per_call"] > 0]
+        table = stage_table(ran, unit="call")
+        result["kinds"][kind] = {
+            "calls": len(mine), "profiled": len(profs),
+            "wall_ms_unprofiled_calls": plain,
+            "wall_ms_profiled_calls": prof_ms,
+            "idle_share_vs_profiled_calls": 1.0 - busy / wall_prof,
+            "matcher_kernel": {
+                "launches": launches,
+                "mean_device_us": device_us / launches if launches else None},
+            **{k: v for k, v in summary.items() if k != "stages"},
+            "stages": ran}
+        head = (f"{kind}: {len(mine)} calls, {len(profs)} profiled; wall ms "
+                f"per profiled call {wall_prof:.3f}, unprofiled "
+                f"{[round(x, 3) for x in plain]}; device busy {busy:.3f} "
+                f"ms/call in {summary['launches_per_call']:.0f} launches; "
+                f"idle share {1.0 - busy / wall_prof:.4f} (profiled calls); "
+                f"{MATCHER_KERNEL}: {launches} launches"
+                + (f", mean {device_us / launches:.3f} us" if launches
+                   else ""))
+        print(head)
+        print(table)
+        text += [head, table, profs[-1].key_averages().table(
+            sort_by="self_device_time_total", row_limit=25), ""]
+    os.makedirs(os.path.dirname(LOOP_OUT), exist_ok=True)
+    with open(LOOP_OUT, "w") as f:
+        f.write("\n".join(text))
+    print(json.dumps(result), flush=True)
+
+
 if __name__ == "__main__":
     import sys
     if sys.argv[1:] == ["mapping"]:
         main_mapping()
+    elif sys.argv[1:] == ["loop"]:
+        main_loop()
     elif sys.argv[1:]:
         raise SystemExit("usage: python -m orb_slam_2_ros_tpu_torch.profiling "
-                         "[mapping]")
+                         "[mapping|loop]")
     else:
         main()

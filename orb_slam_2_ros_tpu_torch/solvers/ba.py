@@ -1,8 +1,10 @@
-"""Windowed bundle adjustment: masked LM with a dense Schur complement.
+"""Bundle adjustment: masked LM with a dense Schur complement.
 
 Port of ``orb_slam_2_ros_tpu/solvers/ba.py::windowed_bundle_adjustment``,
 the local-mapping workhorse (``Optimizer::LocalBundleAdjustment``,
-``Optimizer.cc:517-890``), for one device. Each LM step eliminates the 3x3
+``Optimizer.cc:517-890``), and of its chunked dense global BA
+(``dense_gba_init`` / ``dense_gba_chunk``, the post-loop
+``RunGlobalBundleAdjustment``), for one device. Each LM step eliminates the 3x3
 landmark blocks in closed form and solves the reduced camera system
 S = Hcc - Hcp Hpp^-1 Hpc of the W free cameras as one dense (6W x 6W)
 system. Fixed cameras still constrain landmarks through the point-side
@@ -16,11 +18,14 @@ by the cameras outside the window.
 The landmark-side sums (gradient, Hpp, the camera-landmark cross blocks)
 are segment sums of per-edge blocks over a compact axis of at most
 ``cfg.solver.local_ba_max_points`` free landmarks (``ops/segment.py``:
-the same result on every run). The matrix-free CG solver, the global BA
-and the sharded variants of the reference's file are not ported yet.
+the same result on every run). The matrix-free CG solver, the edge-list
+global BA and the sharded variants of the reference's file are not ported
+yet.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -339,3 +344,283 @@ def windowed_bundle_adjustment(kf_q, kf_t, window_rows, kf_uv, kf_ur,
     # the total free count lets callers see an overflow of the compact
     # axis: above MW the landmarks ranked past the cap stayed frozen
     return q, t, pos, edge_mask, edge_loose, torch.sum(mp_free, dtype=i32)
+
+
+# --------------------------------------------------------------------------
+# Dense chunked global BA: the background refinement after a loop closure.
+# --------------------------------------------------------------------------
+
+class DenseGBAState(NamedTuple):
+    """Table-layout GBA snapshot. ``loop_*``: measured loop-edge relative
+    SE3s entering the camera system as priors (see ``_loop_prior_terms``);
+    all-zero weights when the caller has no seams."""
+
+    q: torch.Tensor          # (K, 4)
+    t: torch.Tensor          # (K, 3)
+    pos: torch.Tensor        # (M, 3)
+    lam: torch.Tensor        # ()
+    err: torch.Tensor        # ()
+    kf_uv: torch.Tensor      # (K, P, 2) snapshot observations
+    kf_ur: torch.Tensor      # (K, P)
+    inv_sigma2: torch.Tensor  # (K, P)
+    kf_mp: torch.Tensor      # (K, P) int32
+    edge_valid: torch.Tensor  # (K, P) bool
+    cam_free: torch.Tensor   # (K,) bool
+    mp_free: torch.Tensor    # (M,) bool
+    n0: torch.Tensor         # () int32 keyframes at snapshot time
+    nm0: torch.Tensor        # () int32 map points at snapshot time
+    loop_i: torch.Tensor     # (L,) int32 keyframe c of each seam
+    loop_j: torch.Tensor     # (L,) int32 keyframe k
+    loop_q: torch.Tensor     # (L, 4) measured T_kc rotation (SE3 part)
+    loop_t: torch.Tensor     # (L, 3) measured translation (already /s)
+    loop_w: torch.Tensor     # (L,) float32 prior weight (0 = unused slot)
+
+
+def dense_gba_init(kf_uv, kf_ur, kf_octave, kf_mp, kp_valid, kf_q, kf_t,
+                   cam_free, mp_pos, mp_free, n_kfs, n_mps, cfg: SlamConfig,
+                   loop_i=None, loop_j=None, loop_q=None, loop_t=None,
+                   loop_w=None, n_loop_slots: int = 16) -> DenseGBAState:
+    """Snapshot the map's (K, P) observation table for the dense GBA and
+    evaluate the starting error. Every valid keyframe's edges constrain the
+    landmarks, whether its camera is free or fixed (callers pass kp_valid
+    already masked by kf_valid)."""
+    dev = kf_q.device
+    f32, i32 = torch.float32, torch.int32
+    inv_sigma2 = torch.pow(torch.full_like(kf_ur, cfg.orb.scale_factor),
+                           -2.0 * kf_octave.to(f32))
+    edge_valid = kp_valid & (kf_mp >= 0)
+    if loop_i is None:
+        L = n_loop_slots
+        loop_i = torch.zeros((L,), dtype=i32, device=dev)
+        loop_j = torch.zeros((L,), dtype=i32, device=dev)
+        loop_q = se3.quat_identity((L,), dev)
+        loop_t = torch.zeros((L, 3), dtype=f32, device=dev)
+        loop_w = torch.zeros((L,), dtype=f32, device=dev)
+    st = DenseGBAState(
+        q=kf_q, t=kf_t, pos=mp_pos,
+        lam=torch.full((), 1e-4, dtype=f32, device=dev),
+        err=torch.full((), float("inf"), dtype=f32, device=dev),
+        kf_uv=kf_uv, kf_ur=kf_ur, inv_sigma2=inv_sigma2, kf_mp=kf_mp,
+        edge_valid=edge_valid, cam_free=cam_free, mp_free=mp_free,
+        n0=torch.as_tensor(n_kfs, dtype=i32, device=dev),
+        nm0=torch.as_tensor(n_mps, dtype=i32, device=dev),
+        loop_i=loop_i, loop_j=loop_j, loop_q=loop_q, loop_t=loop_t,
+        loop_w=loop_w.to(f32))
+    return st._replace(err=_dense_gba_error(st, st.q, st.t, st.pos, cfg))
+
+
+def _loop_prior_residual(xi, qk, tk, qc, tc, qm, tm):
+    """``log_se3(T_meas^-1 (T_k T_c^-1))`` (6,) of one seam after the
+    left-multiplied increments xi = [xi_k (6), xi_c (6)]."""
+    qk, tk = se3.compose(*se3.exp(xi[:6]), qk, tk)
+    qc, tc = se3.compose(*se3.exp(xi[6:]), qc, tc)
+    qr, tr = se3.relative(qk, tk, qc, tc)           # T_k T_c^-1
+    qe, te = se3.compose(*se3.inverse(qm, tm), qr, tr)
+    return se3.log(qe, te)
+
+
+_loop_prior_jacobians = torch.func.vmap(
+    torch.func.jacfwd(_loop_prior_residual), in_dims=(None,) + (0,) * 6)
+
+
+def _loop_prior_terms(st: DenseGBAState, q, t):
+    """Residuals (L, 6) and Jacobians (L, 6, 6) w.r.t. the increments of
+    T_k and of T_c of the seam priors: each accepted loop stores its
+    measured relative pose T_kc, and the GBA holds the refined poses to it
+    (the reference's documented deviation from a pure-reprojection GBA:
+    on sparse maps the drift-consistent majority of observations can
+    otherwise relax the loop correction away)."""
+    li, lj = st.loop_i.to(torch.int64), st.loop_j.to(torch.int64)
+    args = (q[lj], t[lj], q[li], t[li], st.loop_q, st.loop_t)
+    zero = torch.zeros((12,), dtype=torch.float32, device=q.device)
+    r0 = _loop_prior_residual(zero, *args)
+    J = _loop_prior_jacobians(zero, *args)
+    return r0, J[..., :6], J[..., 6:]
+
+
+def _loop_prior_error(st: DenseGBAState, q, t):
+    """Sum of weighted squared seam-prior residuals."""
+    li, lj = st.loop_i.to(torch.int64), st.loop_j.to(torch.int64)
+    qr, tr = se3.relative(q[lj], t[lj], q[li], t[li])
+    qe, te = se3.compose(*se3.inverse(st.loop_q, st.loop_t), qr, tr)
+    r = se3.log(qe, te)
+    return torch.sum(st.loop_w * torch.sum(r * r, dim=-1))
+
+
+def _dense_gba_terms(st: DenseGBAState, q, t, pos, cfg: SlamConfig,
+                     jacobians: bool = True):
+    """Residuals (and Jacobians) over the (K, P) table: cameras broadcast
+    per row, landmark positions gathered once."""
+    cam = cfg.camera
+    mp_idx = torch.clamp(st.kf_mp, min=0).to(torch.int64)
+    xc = se3.apply(q[:, None, :], t[:, None, :], pos[mp_idx])
+    x, y = xc[..., 0], xc[..., 1]
+    z = torch.clamp(xc[..., 2], min=_EPS)
+    iz = 1.0 / z
+    u = cam.fx * x * iz + cam.cx
+    v = cam.fy * y * iz + cam.cy
+    ur = u - cam.bf * iz
+    e = torch.stack([u, v, ur], dim=-1) - torch.cat(
+        [st.kf_uv, st.kf_ur[..., None]], dim=-1)
+    if not jacobians:
+        return e, None, None, z
+    iz2 = iz * iz
+    zeros = torch.zeros_like(z)
+    du = torch.stack([cam.fx * iz, zeros, -cam.fx * x * iz2], -1)
+    dv = torch.stack([zeros, cam.fy * iz, -cam.fy * y * iz2], -1)
+    dur = du + torch.stack([zeros, zeros, cam.bf * iz2], -1)
+    dpred = torch.stack([du, dv, dur], dim=-2)               # (K, P, 3, 3)
+    nskew = torch.stack([
+        torch.stack([zeros, xc[..., 2], -xc[..., 1]], -1),
+        torch.stack([-xc[..., 2], zeros, xc[..., 0]], -1),
+        torch.stack([xc[..., 1], -xc[..., 0], zeros], -1),
+    ], dim=-2)
+    eye3 = torch.eye(3, dtype=z.dtype, device=z.device)
+    dxc = torch.cat([eye3.expand_as(nskew), nskew], dim=-1)  # (K, P, 3, 6)
+    Jc = dpred @ dxc
+    Jp = dpred @ se3.quat_to_matrix(q)[:, None]
+    return e, Jc, Jp, z
+
+
+def _dense_gba_weights(st: DenseGBAState, e, z):
+    """Per-edge-component weights + raw chi2 error (no robust kernel, as
+    the reference's ``GlobalBundleAdjustemnt(bRobust=false)`` after loops,
+    ``LoopClosing.cc:763``)."""
+    ones = torch.ones_like(z)
+    comp_w = torch.stack([ones, ones, (st.kf_ur > 0).to(z.dtype)], -1)
+    ok = st.edge_valid & (z > _EPS)
+    w = torch.where(ok, st.inv_sigma2, torch.zeros_like(z))
+    chi2 = torch.sum(e * e * comp_w, dim=-1) * st.inv_sigma2
+    err = torch.sum(torch.where(ok, chi2, torch.zeros_like(chi2)))
+    return w[..., None] * comp_w, err
+
+
+def _dense_gba_error(st: DenseGBAState, q, t, pos, cfg: SlamConfig):
+    """The error the LM's accept test compares: reprojection chi2 plus the
+    seam priors (a constant while every camera is fixed)."""
+    e, _, _, z = _dense_gba_terms(st, q, t, pos, cfg, jacobians=False)
+    return _dense_gba_weights(st, e, z)[1] + _loop_prior_error(st, q, t)
+
+
+def dense_gba_chunk(st: DenseGBAState, cfg: SlamConfig, n_iters: int,
+                    structure_only: bool = None) -> DenseGBAState:
+    """Advance the GBA by ``n_iters`` LM iterations.
+
+    Two bodies, one result. With every camera fixed (what the loop closer
+    asks for under ``cfg.solver.gba_structure_only``) the step is one damped
+    3x3 solve per landmark, ``xp = Hpp_inv @ (-gp)``, and nothing of the
+    camera system is built. Otherwise the full body eliminates the landmark
+    blocks and solves the dense (6K x 6K) reduced camera system, with the
+    seam priors as camera-camera terms; its (M, K, 6, 3) cross blocks are
+    materialised. The landmark-side sums are segment sums of per-edge (12,)
+    and (18,) blocks (``ops/segment.py``).
+
+    ``structure_only`` picks the body; it is a fact of the configuration
+    that the caller knows on the host, so choosing costs no device read.
+    True holds EVERY camera where it is and refines the landmarks alone,
+    whatever ``cam_free`` says: a caller that wants a camera to move passes
+    False. False or None takes the full body, which moves the cameras of
+    ``cam_free`` and gives the structure-only step when that is all false."""
+    K, P = st.kf_mp.shape
+    M = st.pos.shape[0]
+    dev = st.q.device
+    f32, i64 = torch.float32, torch.int64
+    camf = st.cam_free.to(f32)
+    mp_idx = torch.clamp(st.kf_mp, min=0).to(i64)
+    edge_cid = torch.where(st.edge_valid & st.mp_free[mp_idx], mp_idx,
+                           torch.full_like(mp_idx, M))
+    cmask_f = st.mp_free.to(f32)
+    eye3 = torch.eye(3, dtype=f32, device=dev)
+    eye6 = torch.eye(6, dtype=f32, device=dev)
+    cam_on = camf[:, None, None]
+    kk = torch.arange(K, device=dev)
+
+    def point_side(Jp, Wt, We, lam):
+        JpW = Jp * Wt[..., None]
+        pv = torch.cat([torch.einsum("kpin,kpi->kpn", Jp, We),
+                        (JpW.mT @ Jp).reshape(K, P, 9)], dim=-1)
+        acc_p = segment_sum(edge_cid.reshape(-1), pv.reshape(-1, 12),
+                            M + 1)[:M]
+        gp = acc_p[:, :3]
+        Hpp = acc_p[:, 3:].reshape(M, 3, 3)
+        diag_p = torch.diagonal(Hpp, dim1=-2, dim2=-1)
+        Hpp_d = Hpp + (lam * diag_p + 1e-8)[..., None] * eye3
+        return gp, _inv3x3(Hpp_d) * cmask_f[:, None, None]
+
+    def full_step(q, t, pos, lam):
+        e, Jc, Jp, z = _dense_gba_terms(st, q, t, pos, cfg)
+        Wt, _ = _dense_gba_weights(st, e, z)                 # (K, P, 3)
+        Wc = Wt * cam_on
+        We = Wt * e
+        gc = torch.einsum("kpin,kpi->kn", Jc, We * cam_on)   # (K, 6)
+        JcW = Jc * Wc[..., None]
+        Hcc = torch.einsum("kpin,kpim->knm", JcW, Jc)        # (K, 6, 6)
+        gp, Hpp_inv = point_side(Jp, Wt, We, lam)
+        Bv = (JcW.mT @ Jp).reshape(K, P, 18)
+        t_idx = torch.where(edge_cid < M, edge_cid * K + kk[:, None],
+                            torch.full_like(edge_cid, M * K))
+        T = segment_sum(t_idx.reshape(-1), Bv.reshape(-1, 18),
+                        M * K + 1)[:M * K].reshape(M, K, 6, 3)
+
+        bp = -gp
+        tp = torch.einsum("makj,mjl->makl", T, Hpp_inv)      # (M, K, 6, 3)
+        S = -torch.einsum("manj,mblj->anbl", tp, T)
+        dampC = lam * torch.diagonal(Hcc, dim1=-2, dim2=-1) + 1e-8
+        S[kk, :, kk, :] += Hcc + dampC[..., None] * eye6
+        bc_red = -gc - torch.einsum("manj,mj->an", tp, bp)
+
+        # seam priors: camera-camera terms from the measured loop edges;
+        # fixed cameras' factors are masked so the gauge rows stay as
+        # they are
+        r0, Jk, Jc2 = _loop_prior_terms(st, q, t)
+        li, lj = st.loop_i.to(i64), st.loop_j.to(i64)
+        Jk = Jk * camf[lj][:, None, None]
+        Jc2 = Jc2 * camf[li][:, None, None]
+        wJk = st.loop_w[:, None, None] * Jk
+        wJc = st.loop_w[:, None, None] * Jc2
+        blocks = torch.cat([wJk.mT @ Jk, wJc.mT @ Jc2, wJk.mT @ Jc2,
+                            wJc.mT @ Jk])
+        blk_idx = torch.cat([lj * K + lj, li * K + li, lj * K + li,
+                             li * K + lj])
+        Sp = segment_sum(blk_idx, blocks.reshape(-1, 36), K * K)
+        S = S + Sp.reshape(K, K, 6, 6).permute(0, 2, 1, 3)
+        bvec = -torch.cat([torch.einsum("lij,li->lj", wJk, r0),
+                           torch.einsum("lij,li->lj", wJc, r0)])
+        bc_red = bc_red + segment_sum(torch.cat([lj, li]), bvec, K)
+
+        # fixed-camera rows get identity so the dense solve stays
+        # nonsingular; their right-hand side is zeroed
+        Sm = S.reshape(6 * K, 6 * K) + torch.diag(
+            (1.0 - camf).repeat_interleave(6))
+        bflat = (bc_red * camf[:, None]).reshape(-1)
+        xc = _finite(torch.linalg.solve_ex(Sm, bflat)[0]).reshape(K, 6)
+        xc = xc * camf[:, None]
+
+        tx = torch.einsum("mknj,kn->mj", T, xc)
+        xp = _finite(torch.einsum("mjk,mk->mj", Hpp_inv, bp - tx))
+        dq, dt = se3.exp(xc)
+        q_new, t_new = se3.compose(dq, dt, q, t)
+        q_new = torch.where(st.cam_free[:, None], q_new, q)
+        t_new = torch.where(st.cam_free[:, None], t_new, t)
+        return q_new, t_new, pos + xp * cmask_f[:, None]
+
+    def structure_step(q, t, pos, lam):
+        e, _, Jp, z = _dense_gba_terms(st, q, t, pos, cfg)
+        Wt, _ = _dense_gba_weights(st, e, z)
+        gp, Hpp_inv = point_side(Jp, Wt, Wt * e, lam)
+        xp = _finite(torch.einsum("mjk,mk->mj", Hpp_inv, -gp))
+        return q, t, pos + xp * cmask_f[:, None]
+
+    step = structure_step if structure_only else full_step
+    q, t, pos, lam, err = st.q, st.t, st.pos, st.lam, st.err
+    for _ in range(n_iters):
+        q_new, t_new, pos_new = step(q, t, pos, lam)
+        err_new = _dense_gba_error(st, q_new, t_new, pos_new, cfg)
+        improved = err_new < err
+        q = torch.where(improved, q_new, q)
+        t = torch.where(improved, t_new, t)
+        pos = torch.where(improved, pos_new, pos)
+        lam = torch.clamp(torch.where(improved, lam * 0.3, lam * 5.0),
+                          1e-10, 1e8)
+        err = torch.where(improved, err_new, err)
+    return st._replace(q=q, t=t, pos=pos, lam=lam, err=err)

@@ -156,3 +156,41 @@ def test_cuda_mapping_step_matches_cpu(cuda):
     assert gpu["n_mps"] == gpu["valid"] and cpu["n_culled"] > 0
     assert (gpu["kf_mp"] == cpu["kf_mp"]).mean() >= 0.98
     assert (gpu["last"] == cpu["last"]).mean() >= 0.98
+
+
+def test_cuda_full_system_matches_cpu(cuda):
+    """``System`` with loop closing on (its default) chooses the card, keeps
+    the loop closer's state there, and over 24 frames tracks, maps and
+    ingests as the same system does on the CPU (no loop on 24 frames)."""
+    import dataclasses
+
+    from orb_slam_2_ros_tpu_torch.config import VocabConfig
+    from orb_slam_2_ros_tpu_torch.place import vocabulary
+
+    cfg = dataclasses.replace(small_cfg(), vocab=VocabConfig(k=6, levels=3))
+    pending = System(cfg)           # no vocabulary: trained at the first chunk
+    assert pending.device.type == "cuda" and pending._vocab_pending
+    n = 24
+    ds = SyntheticRGBD(cfg, n_frames=n, seed=0)
+    grays = np.stack([ds[i][0] for i in range(n)])
+    depths = np.stack([ds[i][1] for i in range(n)])
+    train = np.random.default_rng(0).integers(0, 2 ** 32, (2000, 8),
+                                              dtype=np.uint32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        voc = vocabulary.train_vocabulary(train, cfg, seed=0, device=dev)
+        system = System(cfg, ba_window=8, vocab=voc,
+                        device=None if dev == "cuda" else dev)
+        lc = system.loop_closer
+        assert lc.state.db.kf_word.device.type == dev
+        recs = system.track_chunk(grays, depths, ds.timestamps)
+        system.flush()
+        assert lc._n_ingested == system.tracker.n_kfs >= 3
+        assert lc.n_loops_closed == 0 and not lc._pending_verdict
+        out[dev] = ([r.state for r in recs], system.tracker.n_kfs,
+                    np.stack([r.c_w for r in recs]),
+                    lc.state.db.kf_word[:lc._n_ingested].cpu().numpy())
+    cpu, gpu = out["cpu"], out["cuda"]
+    assert gpu[0] == cpu[0] == [OK] * n and gpu[1] == cpu[1]
+    np.testing.assert_allclose(gpu[2], cpu[2], atol=5e-3)
+    assert (gpu[3] == cpu[3]).mean() >= 0.98

@@ -7,6 +7,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -25,10 +26,14 @@ def test_port_imports_no_jax():
     """Every module of the port and chip_smoke.py, imported in a fresh
     interpreter, pull in neither JAX nor any module of the JAX package."""
     mods = _port_modules() + ["chip_smoke"]
-    assert len(mods) >= 20
+    assert len(mods) >= 30
     pkg = orb_slam_2_ros_tpu_torch.__name__
     for new in ("geometry.triangulate", "solvers.ba", "ops.segment",
-                "pipeline.local_mapping", "pipeline.slam", "eval_mapping"):
+                "pipeline.local_mapping", "pipeline.slam", "eval_mapping",
+                "geometry.sim3", "place.vocabulary", "place.database",
+                "solvers.sim3_solver", "solvers.pose_graph",
+                "pipeline.loop_closing", "pipeline.metrics",
+                "eval_loop_closing"):
         assert f"{pkg}.{new}" in mods, new
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -88,15 +93,16 @@ def test_system_defaults_to_the_card_and_raises_without_one(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr(map_state, "empty",
                         lambda *a, **k: built.append(a) or 1 / 0)
-    with pytest.raises(RuntimeError, match="device=\"cpu\""):
-        slam.System(SlamConfig(), enable_loop_closing=False)
+    from orb_slam_2_ros_tpu_torch.pipeline import loop_closing
+    monkeypatch.setattr(loop_closing, "empty_state",
+                        lambda *a, **k: built.append(a) or 1 / 0)
+    # loop closing on is the default; with or without it, and with or
+    # without a vocabulary, no device named means the card
+    for kwargs in (dict(), dict(enable_loop_closing=True),
+                   dict(enable_loop_closing=False), dict(vocab=object())):
+        with pytest.raises(RuntimeError, match="device=\"cpu\""):
+            slam.System(SlamConfig(), **kwargs)
     assert not built            # nothing was built, on any device
-    # loop closing is the reference's default and is not ported: asking for
-    # it, or not saying, raises before anything else happens
-    with pytest.raises(NotImplementedError, match="enable_loop_closing=False"):
-        slam.System(SlamConfig(), enable_loop_closing=True)
-    with pytest.raises(NotImplementedError, match="enable_loop_closing=False"):
-        slam.System(SlamConfig())
 
 
 def test_state_builders_require_a_device():
@@ -110,8 +116,119 @@ def test_state_builders_require_a_device():
         convert.map_state_from_numpy({})
     with pytest.raises(TypeError):
         convert.track_carry_from_numpy({})
+    from orb_slam_2_ros_tpu_torch.pipeline import loop_closing
+    from orb_slam_2_ros_tpu_torch.place import database, vocabulary
+    with pytest.raises(TypeError):
+        loop_closing.empty_state(SlamConfig())
+    with pytest.raises(TypeError):
+        database.empty(SlamConfig())
+    with pytest.raises(TypeError):
+        vocabulary.train_vocabulary(None, SlamConfig())
+    for fn in (convert.vocabulary_from_numpy, convert.loop_state_from_numpy,
+               convert.dense_gba_state_from_numpy):
+        with pytest.raises(TypeError):
+            fn({})
 
 
 def test_tf32_disabled():
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+
+
+def _permuted_twice(fn, n, seed=0):
+    """fn(order) for the identity and for a random permutation of n
+    contributions."""
+    perm = torch.from_numpy(np.random.default_rng(seed).permutation(n))
+    return fn(torch.arange(n)), fn(perm)
+
+
+def test_float_sums_with_duplicate_targets_do_not_depend_on_the_order():
+    """Where loop closing adds floats onto repeated targets (the pose
+    graph's blocks, the global BA's landmark sums, the BoW weights), each
+    sum goes through ``ops/segment.segment_sum`` (PyTorch's deterministic
+    ``index_add_``: the same result on every run of the same inputs) or an
+    exact form. Here each runs twice on the CPU, the second time with its
+    contributions in another order: the BoW weights are equal to the last
+    bit, the others within 1e-5 (a float sum in another order)."""
+    from orb_slam_2_ros_tpu_torch.config import SlamConfig
+    from orb_slam_2_ros_tpu_torch.geometry import sim3
+    from orb_slam_2_ros_tpu_torch.ops.segment import segment_sum
+    from orb_slam_2_ros_tpu_torch.place import vocabulary
+    from orb_slam_2_ros_tpu_torch.solvers import ba, pose_graph
+
+    rng = np.random.default_rng(0)
+
+    # the primitive: many contributions to few rows
+    idx = torch.from_numpy(rng.integers(0, 7, 5000))
+    vals = torch.from_numpy(rng.normal(0, 1, (5000, 12)).astype(np.float32))
+    a, b = _permuted_twice(
+        lambda o: segment_sum(idx[o], vals[o], 7), 5000)
+    assert torch.equal(a, segment_sum(idx, vals, 7))    # the same run twice
+    assert a.shape == b.shape == (7, 12)
+    np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-4)
+    assert not torch.are_deterministic_algorithms_enabled()     # scoped
+
+    # BoW weights: count x idf is exact, so any keypoint order gives the
+    # same merged weights per word, bit for bit
+    P, W = 300, 40
+    word = torch.from_numpy(rng.integers(-1, W, P).astype(np.int32))
+    idf = torch.from_numpy(rng.uniform(0.5, 3, W).astype(np.float32))
+    tf = torch.where(word >= 0, idf[word.clamp(min=0).long()],
+                     torch.zeros(()))
+
+    def dense_weights(o):
+        w = vocabulary.bow_weights(word[o], tf[o], W)
+        return vocabulary.dense_bow(word[o], w, W)
+
+    a, b = _permuted_twice(dense_weights, P)
+    assert torch.equal(a, b) and abs(float(a.sum()) - 1.0) < 1e-5
+
+    # the pose graph: the same edges in another order
+    K, E = 8, 40
+    xi = torch.from_numpy(rng.normal(0, 0.3, (K, 7)).astype(np.float32))
+    q, t, s = sim3.exp(xi)
+    ei = torch.from_numpy(rng.integers(0, K - 1, E))
+    ej = torch.clamp(ei + torch.from_numpy(rng.integers(1, 3, E)), max=K - 1)
+    rq, rt, rs = sim3.exp(torch.from_numpy(
+        rng.normal(0, 0.3, (E, 7)).astype(np.float32)))
+    w = torch.from_numpy(rng.uniform(0.5, 2, E).astype(np.float32))
+    fixed = torch.zeros(K, dtype=torch.bool)
+    fixed[0] = True
+
+    def graph(o):
+        return pose_graph.optimize_essential_graph(
+            q, t, s, ei[o], ej[o], rq[o], rt[o], rs[o], w[o], fixed,
+            SlamConfig(), iters=3)
+
+    a, b = _permuted_twice(graph, E)
+    for x, y in zip(a[:3], b[:3]):
+        np.testing.assert_allclose(x.numpy(), y.numpy(), atol=1e-5)
+
+    # the global BA's landmark sums: the same observations with the
+    # keyframe rows in another order (structure-only body)
+    Kk, Pp, M = 6, 50, 40
+    cfg = SlamConfig()
+    pos = torch.from_numpy(np.concatenate(
+        [rng.uniform(-1, 1, (M, 2)), rng.uniform(3, 5, (M, 1))], -1).astype(
+            np.float32))
+    kq = torch.zeros(Kk, 4)
+    kq[:, 0] = 1
+    kt = torch.from_numpy(rng.normal(0, 0.05, (Kk, 3)).astype(np.float32))
+    kf_mp = torch.from_numpy(rng.integers(0, M, (Kk, Pp)).astype(np.int32))
+    xc = pos[kf_mp.long()] + kt[:, None]
+    uv = torch.stack([cfg.camera.fx * xc[..., 0] / xc[..., 2] + cfg.camera.cx,
+                      cfg.camera.fy * xc[..., 1] / xc[..., 2] + cfg.camera.cy],
+                     -1) + torch.from_numpy(
+        rng.normal(0, 0.5, (Kk, Pp, 2)).astype(np.float32))
+    ur = uv[..., 0] - cfg.camera.bf / xc[..., 2]
+
+    def gba(o):
+        st = ba.dense_gba_init(
+            uv[o], ur[o], torch.zeros((Kk, Pp), dtype=torch.int32), kf_mp[o],
+            torch.ones((Kk, Pp), dtype=torch.bool), kq[o], kt[o],
+            torch.zeros(Kk, dtype=torch.bool), pos,
+            torch.ones(M, dtype=torch.bool), Kk, M, cfg)
+        return ba.dense_gba_chunk(st, cfg, n_iters=3, structure_only=True).pos
+
+    a, b = _permuted_twice(gba, Kk)
+    np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5)

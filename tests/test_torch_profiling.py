@@ -168,3 +168,56 @@ def test_bench_helpers_on_the_cpu():
         "path: reference keyframe", "path: local map"]
     with pytest.raises(AssertionError):
         bench.label_path_calls(calls[:3])
+
+
+def test_loop_stage_ranges_count_every_program():
+    """The loop profile's ranges over the port's closer on the drifted ring
+    of ``tests/test_loop_closing.py`` (CPU): every program and part is seen
+    as often as the closer's own counters say, and the matcher's projection
+    search 3 times per ladder and 9 times per correction."""
+    import dataclasses
+
+    from orb_slam_2_ros_tpu_torch import convert
+    from orb_slam_2_ros_tpu_torch.pipeline.loop_closing import LoopCloser
+    from orb_slam_2_ros_tpu_torch.place import vocabulary
+
+    from orb_slam_2_ros_tpu.config import SolverConfig
+    from test_loop_closing import N_KF, build_looped_map, small_cfg
+
+    # one structure-only GBA chunk, to keep the profile small
+    jcfg = dataclasses.replace(small_cfg(),
+                               solver=SolverConfig(global_ba_iters=5))
+    jm, _, descs = build_looped_map(jcfg)
+    cfg = convert.config_from_dict(dataclasses.asdict(jcfg))
+    m = convert.map_state_from_numpy(
+        {k: np.asarray(v) for k, v in jm._asdict().items()}, "cpu")
+    voc = vocabulary.train_vocabulary(descs, cfg, seed=0, device="cpu")
+    lc = LoopCloser(cfg, voc, min_kfs_between_loops=6)
+    stages = profiling.LOOP_STAGES
+    before = [getattr(mod, attr) for mod, attr, _, _ in stages]
+    n_calls = 8     # the reference's own test closes the ring in 8
+    with profiling.stage_ranges(stages), torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        for _ in range(n_calls):
+            m, _ = lc.process(m, defer=False)
+    assert [getattr(mod, attr) for mod, attr, _, _ in stages] == before
+    assert lc.n_loops_closed == lc.n_corrections == 1 and lc.n_ladders >= 1
+
+    s = profiling.summarize(prof.events(), 1, stages, unit="call")
+    calls = {r["stage"]: r["calls_per_call"] for r in s["stages"]}
+    L, X = lc.n_ladders, lc.n_corrections
+    # one detection per ingested keyframe (4 a call), then one re-detection
+    # per call
+    detects = N_KF + n_calls - N_KF // 4
+    assert calls == {
+        "ingest_and_detect": n_calls, "transform": N_KF, "bow_weights": N_KF,
+        "query": detects, "detect_candidates": detects,
+        # per call of the closer, per ladder (widening) and twice per
+        # correction (the graph's edges, the fuse targets)
+        "covisibility": n_calls + L + 2 * X,
+        "sim3_ladder": L, "search_by_node": L, "ransac_sim3": L,
+        "refine_sim3_lm": L, "search_by_projection_pose": 3 * L + 9 * X,
+        "apply_correction": X, "essential_graph": X, "correct_points": X,
+        "gba_start": X, "gba_chunk": X, "gba_finish": X}
+    assert s["launches_per_call"] == 0
+    assert "essential_graph" in profiling.stage_table(s["stages"], unit="call")

@@ -14,6 +14,7 @@ of ``tests/test_slam_system.py``.
 - The port's ``System`` alone: the mapper runs exactly on the chunks that
   inserted a keyframe, ``last_mp`` follows the compaction, keyframe-pool
   compaction re-bases the records, ``reset``, and what is not ported raises.
+  ``System`` with loop closing on is held in ``tests/test_torch_system_loop.py``.
 """
 
 import dataclasses
@@ -136,6 +137,18 @@ def test_system_matches_reference(seq, port_system):
     np.testing.assert_allclose(tc, jc, atol=5e-3)
     assert abs(system.n_culled_total - js.n_culled_total) \
         <= 0.03 * js.n_culled_total
+    # the trajectory composed through the keyframes that the windowed BA
+    # has moved since the records were made
+    jposes, jts = js.tracker.composed_trajectory()
+    tposes, tts = system.tracker.composed_trajectory()
+    assert tts == jts and len(tposes) == N_FRAMES
+    jcc = np.stack([c for _, c in jposes])
+    tcc = np.stack([c for _, c in tposes])
+    print(f"composed: max camera-centre difference "
+          f"{np.abs(jcc - tcc).max():.2e} m; moved from the records by "
+          f"{np.abs(tcc - tc).max():.2e} m")
+    np.testing.assert_allclose(tcc, jcc, atol=5e-3)
+    assert np.abs(tcc - tc).max() > 0          # the BA did move keyframes
 
 
 def test_mapper_runs_on_keyframe_chunks_only(seq, port_system):
@@ -232,15 +245,11 @@ def test_reset_and_single_frame(seq):
 
 def test_unported_modes_raise(seq):
     cfg = seq["tcfg"]
-    with pytest.raises(NotImplementedError, match="loop closing"):
-        tslam.System(cfg, device="cpu")             # the reference's default
-    with pytest.raises(NotImplementedError, match="loop closing"):
-        tslam.System(cfg, enable_loop_closing=True, device="cpu")
     off = dict(enable_loop_closing=False, device="cpu")
     with pytest.raises(NotImplementedError):
-        tslam.System(cfg, vocab=object(), **off)
-    with pytest.raises(NotImplementedError):
         tslam.System(cfg, load_map="map.npz", **off)
+    with pytest.raises(NotImplementedError):
+        tslam.System(cfg, load_map="map.npz", device="cpu")
     with pytest.raises(NotImplementedError):
         tslam.System(cfg.replace(localization_only=True), **off)
     for sensor in (0, 1):                           # monocular, stereo
