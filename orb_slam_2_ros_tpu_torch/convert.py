@@ -5,7 +5,8 @@ SLAM has no weights: the map, the tracking context, the vocabulary tree,
 the loop closer's state and a global BA's snapshot are what two
 implementations must share to compare one step from an identical start.
 The reference's ``MapState``, ``TrackCarry``, ``Vocabulary``, ``LoopState``
-and ``DenseGBAState`` arrive as dicts of numpy arrays (``jax.device_get(x._asdict())``; a nested MapState may also be a
+(with the BoW index and its ``kf_node`` table), ``DenseGBAState`` and
+``Frame`` arrive as dicts of numpy arrays (``jax.device_get(x._asdict())``; a nested MapState may also be a
 NamedTuple of numpy arrays). ``uint32`` descriptor words travel as
 ``int32`` with the same bits. Every function that makes tensors takes the
 device they go to; there is no default.
@@ -23,6 +24,8 @@ import numpy as np
 import torch
 
 from orb_slam_2_ros_tpu_torch import config
+from orb_slam_2_ros_tpu_torch.frontend.extractor import Keypoints
+from orb_slam_2_ros_tpu_torch.frontend.frame import Frame
 from orb_slam_2_ros_tpu_torch.map.state import MapState
 from orb_slam_2_ros_tpu_torch.pipeline.loop_closing import LoopState
 from orb_slam_2_ros_tpu_torch.pipeline.tracking import TrackCarry
@@ -83,12 +86,28 @@ def vocabulary_from_numpy(d, device) -> Vocabulary:
                       levels_up=int(d["levels_up"]))
 
 
+def bow_database_from_numpy(d, device) -> BowDatabase:
+    d = _as_dict(d)
+    return BowDatabase(**{f: _to_tensor(d[f], device)
+                          for f in BowDatabase._fields})
+
+
 def loop_state_from_numpy(d, device) -> LoopState:
     d = _as_dict(d)
-    db = _as_dict(d["db"])
     vals = {f: _to_tensor(d[f], device) for f in LoopState._fields if f != "db"}
-    return LoopState(db=BowDatabase(**{f: _to_tensor(db[f], device)
-                                       for f in BowDatabase._fields}), **vals)
+    return LoopState(db=bow_database_from_numpy(d["db"], device), **vals)
+
+
+def frame_from_numpy(d, device) -> Frame:
+    """One frame's measurements (the reference's ``Frame``, its ``kps`` a
+    nested ``Keypoints``), so that both sides can be fed the same
+    keypoints."""
+    d = _as_dict(d)
+    kps = _as_dict(d["kps"])
+    return Frame(kps=Keypoints(**{f: _to_tensor(kps[f], device)
+                                  for f in Keypoints._fields}),
+                 **{f: _to_tensor(d[f], device)
+                    for f in Frame._fields if f != "kps"})
 
 
 def dense_gba_state_from_numpy(d, device) -> DenseGBAState:

@@ -1,8 +1,9 @@
 """Frame: fixed-shape per-image measurements.
 
-Port of ``orb_slam_2_ros_tpu/frontend/frame.py`` for the RGB-D sensor:
-ORB keypoints plus undistorted coords, metric depth and the pseudo right
-coordinate.
+Port of ``orb_slam_2_ros_tpu/frontend/frame.py`` for the RGB-D and stereo
+sensors: ORB keypoints plus undistorted coords, metric depth and the right
+coordinate (the pseudo one from depth for RGB-D, the matched one for
+stereo).
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import torch
 
 from orb_slam_2_ros_tpu_torch.config import SlamConfig
 from orb_slam_2_ros_tpu_torch.frontend import extractor
+from orb_slam_2_ros_tpu_torch.frontend import stereo as stereo_mod
 from orb_slam_2_ros_tpu_torch.frontend.extractor import Keypoints
 from orb_slam_2_ros_tpu_torch.geometry import camera
 
@@ -32,6 +34,20 @@ class Frame(NamedTuple):
     @property
     def desc(self):
         return self.kps.desc
+
+
+def build_stereo(gray_l: torch.Tensor, gray_r: torch.Tensor,
+                 cfg: SlamConfig) -> Frame:
+    """Rectified stereo frame (``Frame.cc:62-118``): ORB on both images,
+    then epipolar-band matching with subpixel SAD disparity
+    (``frontend/stereo.py``)."""
+    kl, pyr_l = extractor.extract_with_pyramid(gray_l, cfg.orb)
+    kr, pyr_r = extractor.extract_with_pyramid(gray_r, cfg.orb)
+    uv = camera.undistort_pixels(cfg.camera, kl.xy)
+    ur, depth = stereo_mod.compute_stereo_matches(
+        kl, kr, stereo_mod.flatten_pyramid(pyr_l),
+        stereo_mod.flatten_pyramid(pyr_r), cfg)
+    return Frame(kps=kl, uv=uv, u_right=ur, depth=depth)
 
 
 def build_rgbd(gray: torch.Tensor, depth_img: torch.Tensor,

@@ -1,13 +1,12 @@
-"""Synthetic RGB-D sequences with exact ground truth.
+"""Synthetic RGB-D and stereo sequences with exact ground truth.
 
 A textured box room rendered by analytic ray casting (numpy, on the host):
 every pixel gets a ray-plane intersection, a bilinear texture sample and an
 exact depth, giving a TUM-like RGB-D stream plus perfect ground-truth poses
 for ATE evaluation.
 
-The port's own copy of the reference's ``orb_slam_2_ros_tpu/io/synthetic.py``
-(without the stereo sequence, which the port does not track yet): the same
-seed gives the same frames bit for bit, which
+The port's own copy of the reference's ``orb_slam_2_ros_tpu/io/synthetic.py``:
+the same seed gives the same frames bit for bit, which
 ``tests/test_torch_config_io.py`` checks.
 """
 
@@ -220,22 +219,41 @@ class SyntheticRGBD:
         return R_wc.T, -R_wc.T @ c_w
 
 
+class SyntheticStereo(SyntheticRGBD):
+    """Rectified stereo pairs: the right camera sits ``baseline = bf/fx``
+    along the left camera's +x axis (same orientation, rectified), so the
+    ground-truth disparity is exactly bf/depth."""
+
+    def __getitem__(self, i):
+        R_wc, c_w = self.poses[i]
+        cam = self.cfg.camera
+        baseline = cam.bf / cam.fx
+        gray_l, _ = render(self.planes, R_wc, c_w, cam)
+        c_r = c_w + R_wc @ np.array([baseline, 0.0, 0.0], np.float32)
+        gray_r, _ = render(self.planes, R_wc, c_r, cam)
+        return gray_l, gray_r
+
+
 def _render_block(job):
     """Worker of ``render_frames``: the frames ``indices`` of the sequence
     that ``kwargs`` describe."""
-    cfg, kwargs, indices = job
-    ds = SyntheticRGBD(cfg, **kwargs)
+    cls, cfg, kwargs, indices = job
+    ds = cls(cfg, **kwargs)
     return [ds[i] for i in indices]
 
 
-def render_frames(cfg: SlamConfig, n_frames: int, workers: int = 1, **kwargs):
-    """Render a whole sequence: (dataset, grays (N, H, W), depths (N, H, W)).
-    ``kwargs`` go to ``SyntheticRGBD`` (seed, trajectory, ...). With
-    ``workers`` > 1 the frames are rendered by that many processes, each of
-    which builds the same scene from the seed; the result is the same,
-    frame for frame, and the processes are gone when the call returns."""
+def render_frames(cfg: SlamConfig, n_frames: int, workers: int = 1,
+                  stereo: bool = False, **kwargs):
+    """Render a whole sequence: (dataset, grays (N, H, W), auxs (N, H, W)),
+    the aux images depth maps, or right images with ``stereo``
+    (``SyntheticStereo``). ``kwargs`` go to the dataset (seed, trajectory,
+    ...). With ``workers`` > 1 the frames are rendered by that many
+    processes, each of which builds the same scene from the seed; the
+    result is the same, frame for frame, and the processes are gone when
+    the call returns."""
     kwargs = dict(kwargs, n_frames=n_frames)
-    ds = SyntheticRGBD(cfg, **kwargs)
+    cls = SyntheticStereo if stereo else SyntheticRGBD
+    ds = cls(cfg, **kwargs)
     if workers <= 1:
         frames = [ds[i] for i in range(n_frames)]
     else:
@@ -246,7 +264,7 @@ def render_frames(cfg: SlamConfig, n_frames: int, workers: int = 1, **kwargs):
                 max_workers=workers,
                 mp_context=multiprocessing.get_context("spawn")) as pool:
             done = list(pool.map(_render_block,
-                                 [(cfg, kwargs, b) for b in blocks]))
+                                 [(cls, cfg, kwargs, b) for b in blocks]))
         frames = [None] * n_frames
         for block, rendered in zip(blocks, done):
             for i, frame in zip(block, rendered):

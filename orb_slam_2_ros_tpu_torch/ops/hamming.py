@@ -24,10 +24,21 @@ def popcount(v: torch.Tensor) -> torch.Tensor:
     return (((v * 0x01010101) & 0xFFFFFFFF) >> 24).to(torch.int32)
 
 
+def _bits(d: torch.Tensor) -> torch.Tensor:
+    """(N, 8) int32 words -> (N, 256) float32 bits, 0 or 1."""
+    shifts = torch.arange(32, dtype=torch.int64, device=d.device)
+    bits = (d.to(torch.int64)[..., None] >> shifts) & 1
+    return bits.reshape(d.shape[:-1] + (256,)).to(torch.float32)
+
+
 def hamming_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a: (N, 8) int32, b: (M, 8) int32 -> (N, M) int32 distances."""
-    return torch.sum(popcount(a[:, None, :] ^ b[None, :, :]), dim=-1,
-                     dtype=torch.int32)
+    """a: (N, 8) int32, b: (M, 8) int32 -> (N, M) int32 distances, as
+    |a| + |b| - 2 a.b over the unpacked bits: one matrix product instead of
+    an (N, M, 8) popcount. Exact: 0/1 products summed 256 at most in
+    float32 (even TF32 inputs hold 0 and 1 exactly)."""
+    ba, bb = _bits(a), _bits(b)
+    d = ba.sum(-1)[:, None] + bb.sum(-1)[None, :] - 2.0 * (ba @ bb.mT)
+    return d.to(torch.int32)
 
 
 def hamming_pairs(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""Small SPD solves for the pose LM and the triangulation.
+"""Small SPD solves for the pose LM and the triangulation, and the null
+space of EPnP.
 
 Replaces ``orb_slam_2_ros_tpu/ops/linalg.py::solve_spd_unrolled``, which
 unrolls a Cholesky at trace time because the TPU's solvers are slow and
@@ -8,6 +9,10 @@ which the LM rejects). The triangulation's batched 3x3 and 4x4 systems need
 the other contract, finite values on a degenerate member, and keep the
 reference's clamped, unrolled Cholesky in float32 (``solve_spd_clamped``).
 Neither synchronises with the host.
+
+``min_subspace`` replaces the reference's TPU float32 workaround for EPnP's
+null space (seed from ``eigh``, polish by block inverse iteration, order by
+Rayleigh-Ritz): one float64 ``eigh`` resolves the trailing cluster.
 """
 
 from __future__ import annotations
@@ -61,3 +66,13 @@ def solve_spd_clamped(H: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             s = s - L[k][i] * x[k]
         x[i] = s / L[i][i]
     return torch.stack(x, dim=-1)
+
+
+def min_subspace(G: torch.Tensor, k: int) -> torch.Tensor:
+    """(..., d, k) orthonormal basis of the k smallest eigendirections of
+    the symmetric G (..., d, d), smallest first: ``torch.linalg.eigh`` in
+    float64, cast back to G's dtype. Signs, and the order inside a
+    near-degenerate cluster, may differ from the reference's inverse
+    iteration; the span is the same."""
+    _, V = torch.linalg.eigh(G.to(torch.float64))
+    return V[..., :k].to(G.dtype)

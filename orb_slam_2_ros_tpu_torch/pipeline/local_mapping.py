@@ -1,8 +1,8 @@
 """Local mapping: triangulation, fusion, windowed bundle adjustment, culling.
 
 Port of ``orb_slam_2_ros_tpu/pipeline/local_mapping.py`` (the
-``LocalMapping`` thread, ``LocalMapping.cc``) for the RGB-D sensor on one
-device. The host runs one mapping step after each tracking chunk that
+``LocalMapping`` thread, ``LocalMapping.cc``) for the RGB-D and stereo
+sensors (the step is the same for both) on one device. The host runs one mapping step after each tracking chunk that
 inserted a keyframe. The step:
 
 1. new-landmark triangulation against covisible keyframes
@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from orb_slam_2_ros_tpu_torch.config import SENSOR_RGBD, SlamConfig
+from orb_slam_2_ros_tpu_torch.config import SENSOR_MONOCULAR, SlamConfig
 from orb_slam_2_ros_tpu_torch.frontend import matcher
 from orb_slam_2_ros_tpu_torch.frontend.extractor import Keypoints
 from orb_slam_2_ros_tpu_torch.frontend.frame import Frame
@@ -386,8 +386,8 @@ class LocalMapper:
     """
 
     def __init__(self, cfg: SlamConfig, window: int = 10):
-        if cfg.sensor != SENSOR_RGBD:
-            raise NotImplementedError("only the RGB-D sensor is ported yet")
+        if cfg.sensor == SENSOR_MONOCULAR:
+            raise NotImplementedError("the monocular sensor is not ported yet")
         self.cfg = cfg
         self.window = window
         # post-step keyframe count of the previous run; -1 = never ran,

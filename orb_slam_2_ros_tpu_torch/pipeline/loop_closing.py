@@ -692,6 +692,15 @@ class LoopCloser:
             n_kfs, self._n_ingested)
         self._pending_verdict.append(verdict)
 
+    def ingest_pending(self, m: map_state.MapState, n_kfs: int):
+        """BoW-ingest every keyframe of the first ``n_kfs`` rows that the
+        index lacks, the detection results discarded: relocalization
+        queries an index that may lag the map."""
+        while self._n_ingested < n_kfs:
+            self.state, _, self._n_ingested = _ingest_and_detect(
+                m, self.state, self.cfg, self.vocab, self.min_gap_frames,
+                n_kfs, self._n_ingested)
+
     def process(self, m: map_state.MapState, defer: bool = True,
                 n_kfs: int = None):
         """One loop-closing step: ingest new keyframes, detect, and, when a

@@ -2,23 +2,27 @@
 entry point.
 
 Port of the part of ``orb_slam_2_ros_tpu/pipeline/slam.py`` (``System.cc``)
-that the RGB-D path runs: construction wires the tracker, the local mapper
-and the loop closer, ``track_rgbd`` / ``track_chunk`` replace ``TrackRGBD``
-(``System.cc:196``). Per tracker chunk the frames are tracked, one mapping
-step runs if the chunk inserted a keyframe, the loop closer ingests the new
-keyframes and detects, an in-flight global BA advances by one chunk, and
-the detection verdict of the PREVIOUS chunk is consumed: a correction lands
-one chunk after its detection, on a schedule that depends on the chunk
-count alone.
+that the RGB-D and stereo paths run: construction wires the tracker, the
+local mapper, the loop closer and the relocalizer; ``track_rgbd`` /
+``track_chunk`` replace ``TrackRGBD`` and ``TrackStereo``
+(``System.cc:196``), the stereo right images riding where RGB-D's depth
+maps do. Per tracker chunk the frames are tracked, one mapping step runs if
+the chunk inserted a keyframe, the loop closer ingests the new keyframes and
+detects, an in-flight global BA advances by one chunk, and the detection
+verdict of the PREVIOUS chunk is consumed: a correction lands one chunk
+after its detection, on a schedule that depends on the chunk count alone.
+Then each LOST frame of the chunk gets a relocalization attempt, in order;
+at the first success the chunk is replayed around it (``_replay_chunk``),
+so tracking resumes at that frame. A map with too few keyframes to
+relocalize against is reset (``Tracking.cc:508-516``).
 
 Loop closing is on by default, as in the reference. Without a ``vocab`` the
 system trains one from the descriptors of its first chunk's frames
 (``_bootstrap_vocabulary``).
 
-Not ported yet, each raising ``NotImplementedError``: map loading and
-saving, the monocular and stereo sensors, localization-only mode.
-Relocalization is not ported either: a LOST frame is recorded and tracking
-goes on, as ``Tracker`` alone does.
+Relocalization needs the BoW index, so it runs with loop closing on, as
+in the reference. Not ported yet, each raising ``NotImplementedError``: map
+loading and saving, the monocular sensor, localization-only mode.
 """
 
 from __future__ import annotations
@@ -28,14 +32,17 @@ from typing import List
 import numpy as np
 import torch
 
-from orb_slam_2_ros_tpu_torch.config import SlamConfig
+from orb_slam_2_ros_tpu_torch.config import SENSOR_STEREO, SlamConfig
+from orb_slam_2_ros_tpu_torch.frontend import frame as frame_mod
 from orb_slam_2_ros_tpu_torch.map import state as map_state
 from orb_slam_2_ros_tpu_torch.pipeline.local_mapping import LocalMapper
 from orb_slam_2_ros_tpu_torch.pipeline.loop_closing import LoopCloser
 from orb_slam_2_ros_tpu_torch.pipeline.metrics import StageTimers
+from orb_slam_2_ros_tpu_torch.pipeline.relocalization import Relocalizer
 from orb_slam_2_ros_tpu_torch.place import vocabulary
 from orb_slam_2_ros_tpu_torch.pipeline.tracking import (
-    NOT_INITIALIZED, FrameRecord, Tracker, _quat_mul_np, _quat_rotate_np)
+    LOST, NOT_INITIALIZED, FrameRecord, Tracker, _quat_mul_np,
+    _quat_rotate_np)
 
 
 def default_vocabulary(cfg: SlamConfig, device, warn: bool = True):
@@ -84,8 +91,13 @@ class System:
         self.n_kf_compactions = 0
         self._culled_dev = []      # device scalars, summed when asked for
         self._frame_counter = 0
-        # the loop closer owns the BoW index; relocalization, which would
-        # share it, is not ported
+        self._last_frame_inputs = None
+        # relocalization's RANSAC stream (the reference's PRNGKey(seed + 1))
+        self._reloc_generator = torch.Generator(device=self.device)
+        self._reloc_generator.manual_seed(cfg.seed + 1)
+        self.n_reloc_attempts = 0
+        self.n_relocalized = 0
+        # the loop closer owns the BoW index, which the relocalizer shares
         self.loop_closing_enabled = enable_loop_closing
         self.loop_closer = None
         self.relocalizer = None
@@ -97,8 +109,10 @@ class System:
             self._build_retrieval_stack()
 
     def _build_retrieval_stack(self):
-        """The loop closer around ``self.vocab``, its global BA stepped in
-        the background, one chunk per tracking chunk."""
+        """The relocalizer and the loop closer around ``self.vocab``, the
+        closer's global BA stepped in the background, one chunk per
+        tracking chunk."""
+        self.relocalizer = Relocalizer(self.cfg, self.vocab)
         self.loop_closer = LoopCloser(self.cfg, self.vocab,
                                       background_gba=True)
 
@@ -127,13 +141,14 @@ class System:
         return self.track_chunk(gray[None], depth[None], [timestamp])[0]
 
     def track_chunk(self, grays, depths, timestamps=None) -> List[FrameRecord]:
-        """Track a batch of frames, grays/depths (N, H, W) float images
-        (metres for depth): per tracker chunk, track, then one mapping
-        step, then loop closing. The mapping step runs only if the chunk
-        inserted a keyframe; that, and how many keyframes wait for the loop
-        closer, is decided from the keyframe count that the chunk's own
-        records carry (``ref_kf`` of the last frame), so neither gate reads
-        anything more from the device."""
+        """Track a batch of frames, grays/depths (N, H, W) float images:
+        depth maps in metres (RGB-D) or the right images (stereo). Per
+        tracker chunk: track, one mapping step, loop closing, then
+        relocalization of the chunk's LOST frames. The mapping step runs
+        only if the chunk inserted a keyframe; that, and how many keyframes
+        wait for the loop closer, is decided from the keyframe count that
+        the chunk's own records carry (``ref_kf`` of the last frame), so
+        neither gate reads anything more from the device."""
         grays = np.asarray(grays, np.float32)
         depths = np.asarray(depths, np.float32)
         if self._vocab_pending:
@@ -147,10 +162,10 @@ class System:
         lc = self.loop_closer
         for w0 in range(0, len(grays), C):
             w1 = min(w0 + C, len(grays))
+            carry_before = self.tracker.carry
             with self.timers.time("tracking"):
                 chunk = self.tracker.process_chunk(
                     grays[w0:w1], depths[w0:w1], timestamps[w0:w1])
-            recs.extend(chunk)
             n_kfs = chunk[-1].ref_kf + 1
             # point ids stay frozen while a global BA holds a snapshot
             gba_running = lc is not None and lc.gba_running
@@ -180,6 +195,29 @@ class System:
                                                      *verdict)
                         if closed:
                             self.tracker.adopt_map(m2)
+            # per-frame relocalization (Tracking.cc:341-346): every LOST
+            # frame gets an attempt, in order; the first success replays
+            # the chunk around it, so the lost-lag is at most one frame
+            states = self.tracker.last_chunk_states()
+            if self.relocalizer is not None and (states == LOST).any():
+                ok = False
+                with self.timers.time("relocalization"):
+                    for f in np.flatnonzero(states == LOST):
+                        ok, q, t, kp_mp, frame = self._attempt_reloc(
+                            *self._to_float_frame(grays[w0 + f],
+                                                  depths[w0 + f]))
+                        if ok:
+                            chunk = self._replay_chunk(
+                                carry_before, grays[w0:w1], depths[w0:w1],
+                                timestamps[w0:w1], int(f), q, t, kp_mp,
+                                frame)
+                            break
+                # lost with a barely started map: start over
+                # (Tracking.cc:508-516, min_num_kf_in_map)
+                if (not ok and self.tracker.n_kfs
+                        <= self.cfg.tracking.min_num_kf_in_map):
+                    self.reset()
+            recs.extend(chunk)
             # keyframe-pool recycling, only while no GBA runs (its
             # snapshot indexes the rows as they are)
             if (self.mapper is not None
@@ -187,6 +225,76 @@ class System:
                     and n_kfs >= int(self.KF_COMPACT_WATERMARK * K)):
                 self.compact_keyframe_pool()
         self._frame_counter += len(grays)
+        self._last_frame_inputs = (grays[-1], depths[-1])
+        return recs
+
+    # ------------------------------------------------------- relocalization
+
+    def _to_float_frame(self, gray, aux):
+        """One frame's float images (host arrays) as tensors on the
+        device."""
+        def dev(a):
+            return torch.from_numpy(np.asarray(a, np.float32)).to(self.device)
+        return dev(gray), dev(aux)
+
+    def _attempt_reloc(self, gray: torch.Tensor, aux: torch.Tensor):
+        """Run the relocalization ladder on one float frame against the
+        current map and BoW index (``Tracking::Relocalization``,
+        ``Tracking.cc:1535-1724``). The index may lag the map, so the
+        missing keyframes are ingested first, their detection results
+        discarded. Returns (ok, q, t, kp_mp, frame); the caller decides
+        when to ``force_pose`` (the replay applies it mid-chunk)."""
+        m = self.tracker.carry.m
+        lc = self.loop_closer
+        lc.ingest_pending(m, self.tracker.n_kfs)
+        if self.cfg.sensor == SENSOR_STEREO:
+            frame = frame_mod.build_stereo(gray, aux, self.cfg)
+        else:
+            frame = frame_mod.build_rgbd(gray, aux, self.cfg)
+        ok, q, t, kp_mp, _, _ = self.relocalizer.relocalize(
+            m, lc.state.db, lc.state.kf_node, frame,
+            generator=self._reloc_generator)
+        self.n_reloc_attempts += 1
+        ok = bool(ok)
+        self.n_relocalized += ok
+        return ok, q, t, kp_mp, frame
+
+    def relocalize(self) -> bool:
+        """Attempt relocalization with the most recent frame
+        (``Tracking::Relocalization``). Returns success."""
+        if self._last_frame_inputs is None or self.relocalizer is None:
+            return False
+        ok, q, t, kp_mp, frame = self._attempt_reloc(
+            *self._to_float_frame(*self._last_frame_inputs))
+        if ok:
+            self.tracker.force_pose(q, t, kp_mp, frame.kps.octave,
+                                    frame.kps.angle)
+        return ok
+
+    def _replay_chunk(self, carry_before, grays, depths, timestamps, f: int,
+                      q, t, kp_mp, frame) -> List[FrameRecord]:
+        """Replay the chunk around a relocalization at its frame ``f``
+        (per-frame relocalization, ``Tracking.cc:341-346``): take the
+        chunk's records back out, restore the carry from before the chunk,
+        re-track frames [0, f) (the same results), force the relocalized
+        pose, and re-track [f, end) from it; the relocalized frame itself
+        re-tracks from the forced pose (the reference's TrackLocalMap pass
+        after relocalization). Returns the chunk's new records.
+
+        As in the reference (``slam.py:546`` and ``:291``), the restored
+        carry predates this chunk's mapping step, loop correction and GBA
+        adoption, and the loop closer's state is not rolled back: kept so
+        that both systems give the same frames."""
+        self.tracker.pop_pending()
+        self.tracker.carry = carry_before
+        recs = []
+        if f > 0:
+            recs += self.tracker.process_chunk(grays[:f], depths[:f],
+                                               timestamps[:f])
+        self.tracker.force_pose(q, t, kp_mp, frame.kps.octave,
+                                frame.kps.angle)
+        recs += self.tracker.process_chunk(grays[f:], depths[f:],
+                                           timestamps[f:])
         return recs
 
     def compact_keyframe_pool(self) -> int:

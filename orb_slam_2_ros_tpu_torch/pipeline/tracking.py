@@ -1,7 +1,8 @@
-"""Tracking front end: per-frame RGB-D pose estimation against the map.
+"""Tracking front end: per-frame RGB-D or stereo pose estimation against
+the map.
 
-Port of ``orb_slam_2_ros_tpu/pipeline/tracking.py`` for the RGB-D sensor
-(``Tracking.cc``: TrackWithMotionModel -> TrackReferenceKeyFrame fallback ->
+Port of ``orb_slam_2_ros_tpu/pipeline/tracking.py`` for the RGB-D and stereo
+sensors (``Tracking.cc``: TrackWithMotionModel -> TrackReferenceKeyFrame fallback ->
 TrackLocalMap -> NeedNewKeyFrame -> CreateNewKeyFrame). The reference's
 ``lax.scan`` over a chunk becomes a Python loop over its frames. The
 stereo/RGB-D initialization, the reference-keyframe fallback, the widened
@@ -10,8 +11,9 @@ computed and ``torch.where`` selects, exactly as the reference selects, so
 nothing in the frame loop waits for the device. Per-frame outputs stay on
 the device until ``flush()``.
 
-Not in this slice: localization-only mode (its visual-odometry points),
-the mono and stereo sensors, and relocalization.
+``force_pose`` and ``pop_pending`` serve relocalization, which ``System``
+drives (``pipeline/relocalization.py``). Not ported: localization-only mode
+(its visual-odometry points) and the monocular sensor.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ from typing import List, NamedTuple
 import numpy as np
 import torch
 
-from orb_slam_2_ros_tpu_torch.config import SENSOR_RGBD, SlamConfig
+from orb_slam_2_ros_tpu_torch.config import (SENSOR_MONOCULAR, SENSOR_RGBD,
+                                             SENSOR_STEREO, SlamConfig)
 from orb_slam_2_ros_tpu_torch.frontend import frame as frame_mod
 from orb_slam_2_ros_tpu_torch.frontend import matcher
 from orb_slam_2_ros_tpu_torch.geometry import se3
@@ -166,9 +169,10 @@ def _track_core(cfg: SlamConfig, m: map_state.MapState, frame, q_pred,
         uv=tv.uv[cand_l], u_right=tv.u_right[cand_l], dist=tv.dist[cand_l],
         view_cos=tv.view_cos[cand_l], pred_level=tv.pred_level[cand_l],
         ok=cand_ok)
-    # window th=3 for RGB-D, widened to 5 for two frames after a
-    # relocalization (SearchLocalPoints, Tracking.cc:1322-1330)
-    th_lm = torch.where(since_reloc < 2, 5.0, 3.0)
+    # window th=3 for RGB-D, 1 otherwise; widened to 5 for two frames after
+    # a relocalization (SearchLocalPoints, Tracking.cc:1322-1330)
+    th_base = 3.0 if cfg.sensor == SENSOR_RGBD else 1.0
+    th_lm = torch.where(since_reloc < 2, 5.0, th_base)
     kp_to_c, _ = matcher.search_local_map(tv_c, m.mp_desc[cand_l], frame,
                                           kp_mp1 >= 0, cfg, th=th_lm)
     kp_to_mp2 = torch.where(kp_to_c >= 0,
@@ -267,16 +271,20 @@ def _unit_quat(like):
     return torch.cat([torch.ones_like(like[:1]), torch.zeros_like(like[1:])])
 
 
-def build_frame(cfg: SlamConfig, gray_u8: torch.Tensor, depth_mm: torch.Tensor):
-    """Frame from wire-format inputs: u8 gray, integer millimetre depth."""
+def build_frame(cfg: SlamConfig, gray_u8: torch.Tensor, aux_w: torch.Tensor):
+    """Frame from wire-format inputs: u8 gray and, per sensor, the u8 right
+    image (stereo, ``Frame.cc:62-118``) or integer millimetre depth
+    (RGB-D, ``:679-701``)."""
     gray = gray_u8.to(torch.float32)
-    depth = depth_mm.to(torch.float32) * 1e-3
+    if cfg.sensor == SENSOR_STEREO:
+        return frame_mod.build_stereo(gray, aux_w.to(torch.float32), cfg)
+    depth = aux_w.to(torch.float32) * 1e-3
     return frame_mod.build_rgbd(gray, depth, cfg)
 
 
 class Tracker:
-    """Per-frame RGB-D tracking; stereo/RGB-D initialization is predicated
-    inside the frame step.
+    """Per-frame RGB-D or stereo tracking; the stereo/RGB-D initialization
+    is predicated inside the frame step.
 
     ``device=None`` means the card (``cuda``) and raises where there is
     none; the tracker runs on the CPU only when asked to (``device="cpu"``).
@@ -288,8 +296,8 @@ class Tracker:
         if cfg.localization_only:
             raise NotImplementedError(
                 "localization-only mode is not ported yet")
-        if cfg.sensor != SENSOR_RGBD:
-            raise NotImplementedError("only the RGB-D sensor is ported yet")
+        if cfg.sensor == SENSOR_MONOCULAR:
+            raise NotImplementedError("the monocular sensor is not ported yet")
         self.cfg = cfg
         if device is None:
             if not torch.cuda.is_available():
@@ -302,6 +310,7 @@ class Tracker:
         self.state = NO_IMAGES_YET
         self.records: List[FrameRecord] = []
         self._pending = []          # [(timestamps, (k, 20) device outs)]
+        self._last_chunk = 0        # index in records of the last chunk
         self._q_init = se3.quat_exp(torch.tensor(
             [cfg.initial_pitch, 0.0, 0.0], dtype=torch.float32,
             device=self.device))
@@ -341,19 +350,26 @@ class Tracker:
     def n_kfs(self):
         return int(self.carry.m.n_kfs)
 
-    def to_wire(self, grays, depths):
-        """Float images -> wire format: u8 gray, u16 millimetre depth."""
+    def to_wire(self, grays, auxs):
+        """Float images -> wire format: u8 gray; u8 right image (stereo) or
+        u16 millimetre depth (RGB-D)."""
         grays8 = np.clip(np.round(np.asarray(grays, np.float32)),
                          0, 255).astype(np.uint8)
-        depth_w = np.clip(np.round(np.asarray(depths, np.float32) * 1e3),
-                          0, 65535).astype(np.uint16)
-        return grays8, depth_w
+        if self.cfg.sensor == SENSOR_STEREO:
+            aux_w = np.clip(np.round(np.asarray(auxs, np.float32)),
+                            0, 255).astype(np.uint8)
+        else:
+            aux_w = np.clip(np.round(np.asarray(auxs, np.float32) * 1e3),
+                            0, 65535).astype(np.uint16)
+        return grays8, aux_w
 
     def process_chunk(self, grays: np.ndarray, depths: np.ndarray,
                       timestamps) -> List[FrameRecord]:
-        """Track a batch of frames, grays/depths (N, H, W) float images
-        (metres for depth). The frame loop never waits for the device;
-        the records are fetched once at the end (``flush``)."""
+        """Track a batch of frames, grays/depths (N, H, W) float images:
+        depth in metres (RGB-D) or the right image (stereo). The frame loop
+        never waits for the device; the records are fetched once at the end
+        (``flush``)."""
+        self._last_chunk = len(self.records)
         grays, depths = self.to_wire(grays, depths)
         n = grays.shape[0]
         for w0 in range(0, n, self.CHUNK):
@@ -397,11 +413,40 @@ class Tracker:
         self.state = recs[-1].state
         return recs
 
+    def last_chunk_states(self) -> np.ndarray:
+        """Per-frame state codes of the most recent ``process_chunk``, from
+        its records (no fetch): ``System``'s probe for LOST frames."""
+        return np.array([r.state for r in self.records[self._last_chunk:]],
+                        dtype=int)
+
+    def pop_pending(self):
+        """Take the most recent ``process_chunk``'s records back out (the
+        relocalization replay re-tracks that chunk and records it anew)."""
+        self._pending = []
+        del self.records[self._last_chunk:]
+
     def adopt_map(self, m: map_state.MapState):
         """Swap in an externally updated map (loop correction, global BA),
         keeping the tracking context: the current pose and the motion model
         are not corrected, as in the reference."""
         self.carry = self.carry._replace(m=m)
+
+    def force_pose(self, q, t, kp_mp, octave, angle):
+        """Adopt a relocalized pose and its associations
+        (``Tracking.cc:1714-1719``): tracking resumes from the new pose with
+        a cleared motion model, the local-map window widened for the next
+        two frames (``mnLastRelocFrameId``, ``:1327-1329``), and the
+        temporal VO points dropped (anchored to the drifted pose)."""
+        c = self.carry
+        q0, t0 = se3.identity(device=self.device)
+        self.carry = c._replace(
+            q=q, t=t, vel_q=q0, vel_t=t0, last_mp=kp_mp, last_oct=octave,
+            last_angle=angle,
+            initialized=torch.ones((), dtype=torch.bool, device=self.device),
+            since_reloc=torch.zeros_like(c.since_reloc),
+            vo_ok=torch.zeros_like(c.vo_ok),
+            last_vo=torch.zeros_like(c.last_vo))
+        self.state = OK
 
     # ------------------------------------------------------------ trajectory
 

@@ -4,6 +4,7 @@ loop closing's programs.
     python -m orb_slam_2_ros_tpu_torch.profiling            # tracking
     python -m orb_slam_2_ros_tpu_torch.profiling mapping    # local mapping
     python -m orb_slam_2_ros_tpu_torch.profiling loop       # loop closing
+    python -m orb_slam_2_ros_tpu_torch.profiling reloc      # relocalization
 
 **Tracking.** Tracks the first 72 frames of ``chip_smoke.py``'s 96-frame synthetic orbit
 at the reference operating point on ``cuda``. Frames 0-63 run first, in
@@ -64,6 +65,23 @@ of the unprofiled and profiled calls, the device busy ms, launches, idle
 share and stage table per call, and the matcher kernel's launches and mean
 device time. The tables also go to ``chiprun_out/profile_loop.txt``; the
 last line is a JSON summary.
+
+**Relocalization.** Runs ``System(cfg)``, all defaults (loop closing on, so
+the relocalizer is built; the vocabulary trained from the first chunk), over
+the first 32 frames of the orbit, then calls ``System._attempt_reloc`` on
+two frames against that map: frame 10, a view of the map (a successful
+attempt), and a blind frame (zeros: no keypoints, a failed attempt). Each
+is timed unprofiled ``RELOC_REPEATS`` times with the host clock between two
+synchronisations, then once under ``torch.profiler`` with a
+``record_function`` range around the attempt and its parts: the frame, the
+BoW candidates (transform, query, candidate selection), the candidate
+ladder (BoW matching, EPnP RANSAC, the pose LM over the 5 candidates) and
+the widening (frustum check, the matcher kernel over the whole point pool,
+the final LM; the ``pose_optimization`` row holds both LMs). It prints per
+attempt the wall ms, device busy ms, launches, the idle share and the stage
+table, and the matcher kernel's launches and mean device time; the tables
+also go to ``chiprun_out/profile_reloc.txt``; the last line is a JSON
+summary.
 """
 
 from __future__ import annotations
@@ -80,15 +98,17 @@ import torch
 
 from orb_slam_2_ros_tpu_torch.config import SENSOR_RGBD, SlamConfig
 from orb_slam_2_ros_tpu_torch.frontend import extractor, matcher
+from orb_slam_2_ros_tpu_torch.frontend import frame as frame_mod
 from orb_slam_2_ros_tpu_torch.geometry import triangulate
 from orb_slam_2_ros_tpu_torch.io import SyntheticRGBD
 from orb_slam_2_ros_tpu_torch.map import state as map_state
 from orb_slam_2_ros_tpu_torch.ops import fast
 from orb_slam_2_ros_tpu_torch.pipeline import (local_mapping, loop_closing,
-                                               tracking)
+                                               relocalization, tracking)
 from orb_slam_2_ros_tpu_torch.pipeline.slam import System
 from orb_slam_2_ros_tpu_torch.place import database, vocabulary
-from orb_slam_2_ros_tpu_torch.solvers import ba, pose_graph, sim3_solver
+from orb_slam_2_ros_tpu_torch.solvers import (ba, pnp, pose_graph,
+                                              sim3_solver)
 
 FRAMES = 72
 WINDOW = 4      # frames in the profiled and in the unprofiled window
@@ -99,6 +119,10 @@ PROFILED_STEPS = (2, 4, 6)      # executed mapping steps, counted from 0
 LOOP_OUT = os.path.join("chiprun_out", "profile_loop.txt")
 PROFILED_DISPATCHES = (4, 8)    # calls of ``dispatch``, counted from 0
 VOCAB_EVERY = 24                # frames whose descriptors train the vocabulary
+RELOC_OUT = os.path.join("chiprun_out", "profile_reloc.txt")
+RELOC_MAP_FRAMES = 32
+RELOC_QUERY = 10                # a frame of the orbit that the map has seen
+RELOC_REPEATS = 3               # unprofiled attempts of each kind
 MATCHER_KERNEL = "masked_best_two_kernel"    # its name in the profile
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx")
@@ -157,6 +181,23 @@ LOOP_STAGES = (
     (loop_closing, "_gba_start", "gba_start", 0),
     (loop_closing, "_gba_step", "gba_chunk", 0),
     (loop_closing, "_gba_finish", "gba_finish", 0),
+)
+
+# one relocalization attempt and its parts
+RELOC_STAGES = (
+    (relocalization, "relocalize", "attempt", 0),
+    (relocalization, "_candidates", "bow_candidates", 1),
+    (vocabulary, "transform", "transform", 2),
+    (database, "query", "query", 2),
+    (database, "detect_candidates", "detect_candidates", 2),
+    (relocalization, "_candidate_ladder", "candidate_ladder", 1),
+    (matcher, "search_by_node", "search_by_node", 2),
+    (pnp, "ransac_pnp", "ransac_pnp", 2),
+    (relocalization, "_widen", "widening", 1),
+    (matcher, "frustum_check", "frustum_check", 2),
+    (matcher, "search_local_map", "search_local_map", 2),
+    (relocalization, "pose_optimization", "pose_optimization", 2),
+    (frame_mod, "build_rgbd", "build_frame", 0),
 )
 
 
@@ -573,14 +614,86 @@ def main_loop():
     print(json.dumps(result), flush=True)
 
 
+def main_reloc():
+    smi = _card()
+    cfg = SlamConfig(sensor=SENSOR_RGBD)
+    n = RELOC_MAP_FRAMES
+    ds = SyntheticRGBD(cfg, n_frames=96, seed=0, trajectory="orbit")
+    grays = np.stack([ds[i][0] for i in range(n)])
+    depths = np.stack([ds[i][1] for i in range(n)])
+    system = System(cfg)
+    system.track_chunk(grays, depths, ds.timestamps[:n])
+    system.flush()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    blind = np.zeros_like(grays[0])
+    cases = {"success": (grays[RELOC_QUERY], depths[RELOC_QUERY]),
+             "failure": (blind, blind)}
+    result = {"card": smi, "map_keyframes": system.tracker.n_kfs,
+              "map_points": int(system.tracker.map.n_mps), "attempts": {}}
+    text = [smi]
+    print(f"map: {result['map_keyframes']} keyframes, "
+          f"{result['map_points']} points after {n} frames")
+
+    def attempt(gray, aux):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ok = system._attempt_reloc(*system._to_float_frame(gray, aux))[0]
+        torch.cuda.synchronize()
+        return ok, 1e3 * (time.perf_counter() - t0)
+
+    for name, (gray, aux) in cases.items():
+        walls = []
+        for _ in range(RELOC_REPEATS):
+            ok, ms = attempt(gray, aux)
+            walls.append(ms)
+        with stage_ranges(RELOC_STAGES), \
+                torch.profiler.profile(activities=acts) as prof:
+            ok_p, ms_p = attempt(gray, aux)
+        if ok != (name == "success") or ok_p != ok:
+            raise AssertionError(f"the {name} case gave ok={ok}, {ok_p}")
+        summary = summarize(prof.events(), 1, RELOC_STAGES, unit="attempt")
+        kern = kernel_by_name(prof.key_averages(), MATCHER_KERNEL)
+        if kern["launches"] != relocalization.LAUNCHES:
+            raise AssertionError(f"{kern['launches']} launches of "
+                                 f"{MATCHER_KERNEL} in one attempt")
+        busy = summary["device_busy_ms_per_attempt"]
+        ran = [r for r in summary["stages"] if r["calls_per_attempt"] > 0]
+        table = stage_table(ran, unit="attempt")
+        result["attempts"][name] = {
+            "ok": ok, "wall_ms_unprofiled": walls, "wall_ms_profiled": ms_p,
+            "idle_share_vs_profiled": 1.0 - busy / ms_p,
+            "idle_share_vs_unprofiled_mean": 1.0 - busy / np.mean(walls),
+            "matcher_kernel": kern,
+            **{k: v for k, v in summary.items() if k != "stages"},
+            "stages": ran}
+        head = (f"{name}: wall ms {[round(w, 3) for w in walls]} unprofiled, "
+                f"{ms_p:.3f} profiled; device busy {busy:.3f} ms in "
+                f"{summary['launches_per_attempt']:.0f} launches; idle share "
+                f"{1.0 - busy / ms_p:.4f} (profiled), "
+                f"{1.0 - busy / np.mean(walls):.4f} (unprofiled mean); "
+                f"{MATCHER_KERNEL}: {kern['launches']} launch, "
+                f"{kern['mean_device_us']:.3f} us")
+        print(head)
+        print(table)
+        text += [head, table, prof.key_averages().table(
+            sort_by="self_device_time_total", row_limit=25), ""]
+    os.makedirs(os.path.dirname(RELOC_OUT), exist_ok=True)
+    with open(RELOC_OUT, "w") as f:
+        f.write("\n".join(text))
+    print(json.dumps(result), flush=True)
+
+
 if __name__ == "__main__":
     import sys
     if sys.argv[1:] == ["mapping"]:
         main_mapping()
     elif sys.argv[1:] == ["loop"]:
         main_loop()
+    elif sys.argv[1:] == ["reloc"]:
+        main_reloc()
     elif sys.argv[1:]:
         raise SystemExit("usage: python -m orb_slam_2_ros_tpu_torch.profiling "
-                         "[mapping|loop]")
+                         "[mapping|loop|reloc]")
     else:
         main()

@@ -109,6 +109,28 @@ def test_synthetic_rgbd_bit_for_bit(trajectory, drift):
     assert tio.SyntheticRGBD is tsyn.SyntheticRGBD
 
 
+@pytest.mark.parametrize("trajectory", ["orbit", "loop"])
+def test_synthetic_stereo_bit_for_bit(trajectory):
+    n = 2
+    jds = jsyn.SyntheticStereo(_small(jconfig), n_frames=n, seed=3,
+                               trajectory=trajectory)
+    tds = tio.SyntheticStereo(_small(tconfig), n_frames=n, seed=3,
+                              trajectory=trajectory)
+    for i in range(n):
+        (jl, jr), (tl, tr) = jds[i], tds[i]
+        assert tl.shape == tr.shape == (240, 320)
+        np.testing.assert_array_equal(jl, tl)
+        np.testing.assert_array_equal(jr, tr)
+        assert not np.array_equal(tl, tr)
+    ds, lefts, rights = tio.render_frames(_small(tconfig), n, workers=2,
+                                          stereo=True, seed=3,
+                                          trajectory=trajectory)
+    assert isinstance(ds, tio.SyntheticStereo)
+    for i in range(n):
+        np.testing.assert_array_equal(lefts[i], jds[i][0])
+        np.testing.assert_array_equal(rights[i], jds[i][1])
+
+
 @pytest.mark.parametrize("with_scale", [False, True])
 def test_ate_rmse_agrees(with_scale):
     rng = np.random.default_rng(11)

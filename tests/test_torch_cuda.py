@@ -16,10 +16,11 @@ from orb_slam_2_ros_tpu_torch.bench_match_kernel import (assert_equal,
                                                         make_case)
 from orb_slam_2_ros_tpu_torch.config import (CameraConfig, MapConfig,
                                              OrbConfig, SENSOR_RGBD,
-                                             SlamConfig, TrackingConfig)
+                                             SENSOR_STEREO, SlamConfig,
+                                             TrackingConfig)
 from orb_slam_2_ros_tpu_torch import kernel_timing
 from orb_slam_2_ros_tpu_torch.frontend import matcher
-from orb_slam_2_ros_tpu_torch.io import SyntheticRGBD
+from orb_slam_2_ros_tpu_torch.io import SyntheticRGBD, SyntheticStereo
 from orb_slam_2_ros_tpu_torch.map.state import MapState
 from orb_slam_2_ros_tpu_torch.ops import match_kernel
 from orb_slam_2_ros_tpu_torch.pipeline.local_mapping import LocalMapper
@@ -194,3 +195,140 @@ def test_cuda_full_system_matches_cpu(cuda):
     assert gpu[0] == cpu[0] == [OK] * n and gpu[1] == cpu[1]
     np.testing.assert_allclose(gpu[2], cpu[2], atol=5e-3)
     assert (gpu[3] == cpu[3]).mean() >= 0.98
+
+
+def _to(x, dev):
+    """A NamedTuple of tensors (and plain numbers) on ``dev``."""
+    return type(x)(*(v.to(dev) if torch.is_tensor(v) else v for v in x))
+
+
+def test_cuda_relocalizer_matches_cpu(cuda):
+    """One relocalization attempt on the card against the same attempt on
+    the CPU, the card fed the CPU's RANSAC draw: the same ``ok`` and
+    candidate, inliers within 2, the camera centre within 1e-3 m; the
+    widening's one matcher call launches the kernel and equals the plain
+    version on its own arguments. The map is built by ``System`` on the
+    CPU over 32 frames."""
+    import dataclasses
+
+    from orb_slam_2_ros_tpu_torch.config import VocabConfig
+    from orb_slam_2_ros_tpu_torch.frontend import frame as frame_mod
+    from orb_slam_2_ros_tpu_torch.geometry import se3
+    from orb_slam_2_ros_tpu_torch.pipeline import relocalization
+    from orb_slam_2_ros_tpu_torch.place import vocabulary
+    from orb_slam_2_ros_tpu_torch.solvers import pnp
+
+    cfg = dataclasses.replace(small_cfg(), vocab=VocabConfig(k=6, levels=3))
+    n = 32
+    ds = SyntheticRGBD(cfg, n_frames=n, seed=0)
+    train = np.random.default_rng(0).integers(0, 2 ** 32, (2000, 8),
+                                              dtype=np.uint32)
+    voc = vocabulary.train_vocabulary(train, cfg, seed=0, device="cpu")
+    system = System(cfg, ba_window=8, vocab=voc, device="cpu")
+    system.track_chunk(np.stack([ds[i][0] for i in range(n)]),
+                       np.stack([ds[i][1] for i in range(n)]), ds.timestamps)
+    system.flush()
+    m, st = system.tracker.map, system.loop_closer.state
+    g, d = ds[20]
+    drawn = []
+    draw = pnp.draw_samples
+
+    def recording(*args, **kwargs):
+        drawn.append(draw(*args, **kwargs))
+        return drawn[-1]
+
+    out = {}
+    for dev in ("cpu", "cuda"):
+        frame = frame_mod.build_rgbd(torch.from_numpy(g).float(),
+                                     torch.from_numpy(d).float(), cfg)
+        frame = frame._replace(kps=_to(frame.kps, dev), **{
+            f: getattr(frame, f).to(dev) for f in ("uv", "u_right", "depth")})
+        reloc = relocalization.Relocalizer(cfg, _to(voc, dev))
+        before = match_kernel.LAUNCHES
+        with kernel_timing.capture_calls(matcher, "masked_best_two") as calls:
+            if dev == "cpu":
+                pnp.draw_samples = recording
+                try:
+                    res = reloc.relocalize(
+                        m, st.db, st.kf_node, frame,
+                        generator=torch.Generator().manual_seed(0))
+                finally:
+                    pnp.draw_samples = draw
+            else:
+                res = reloc.relocalize(
+                    _to(m, dev), _to(st.db, dev), st.kf_node.to(dev), frame,
+                    sample_idx=drawn[0].to(dev))
+        assert len(calls) == relocalization.LAUNCHES
+        assert match_kernel.LAUNCHES - before == (
+            relocalization.LAUNCHES if dev == "cuda" else 0)
+        if dev == "cuda":
+            assert calls[0][0].shape[0] == cfg.map.max_mps
+            got = match_kernel.masked_best_two_cuda(*calls[0])
+            want = match_kernel.masked_best_two_reference(*calls[0])
+            assert assert_equal(got, want, "relocalization widening") == 0
+        ok, q, t, kp_mp, n_inl, c = res
+        out[dev] = (bool(ok), int(c), int(n_inl),
+                    se3.camera_center(q, t).cpu().numpy())
+    cpu, gpu = out["cpu"], out["cuda"]
+    assert gpu[0] == cpu[0] is True and gpu[1] == cpu[1]
+    assert abs(gpu[2] - cpu[2]) <= 2
+    np.testing.assert_allclose(gpu[3], cpu[3], atol=1e-3)
+
+
+def stereo_cfg():
+    """``tests/test_stereo_tracking.py``'s configuration."""
+    cam = CameraConfig(width=320, height=240, fx=260.0, fy=260.0,
+                       cx=159.5, cy=119.5, bf=26.0, th_depth=50.0)
+    return SlamConfig(
+        sensor=SENSOR_STEREO, camera=cam,
+        orb=OrbConfig(n_features=500, n_levels=3, max_kps=640),
+        map=MapConfig(max_kfs=16, max_mps=4096, max_kps=640),
+        tracking=TrackingConfig(min_init_stereo_kps=150))
+
+
+def test_cuda_stereo_frame_matches_cpu(cuda):
+    """One stereo frame on the card against the CPU, by overlap: >= 95% of
+    the keypoints at the same pixel, and on those the matched set the same
+    and the depth within 1e-3 m on >= 95%."""
+    from orb_slam_2_ros_tpu_torch.frontend import frame as frame_mod
+
+    cfg = stereo_cfg()
+    gl, gr = SyntheticStereo(cfg, n_frames=1, seed=0)[0]
+    f = {dev: frame_mod.build_stereo(torch.from_numpy(gl).to(dev),
+                                     torch.from_numpy(gr).to(dev), cfg)
+         for dev in ("cpu", "cuda")}
+    xy = {k: v.kps.xy.cpu().numpy()[v.valid.cpu().numpy()]
+          for k, v in f.items()}
+    dep = {k: v.depth.cpu().numpy()[v.valid.cpu().numpy()]
+           for k, v in f.items()}
+    index = {tuple(p): i for i, p in enumerate(xy["cuda"])}
+    pairs = [(i, index[tuple(p)]) for i, p in enumerate(xy["cpu"])
+             if tuple(p) in index]
+    assert len(pairs) >= 0.95 * len(xy["cpu"])
+    a, b = np.array(pairs).T
+    dc, dg = dep["cpu"][a], dep["cuda"][b]
+    assert (dc > 0).sum() > 150
+    assert ((dc > 0) == (dg > 0)).mean() >= 0.95
+    assert (np.abs(dc - dg) <= 1e-3).mean() >= 0.95
+
+
+def test_cuda_stereo_tracker_matches_cpu(cuda):
+    """16 stereo frames of tracking on the card against the CPU: the same
+    states, every frame OK, camera centres within 5 mm, the kernel launched
+    4 times a frame."""
+    cfg = stereo_cfg()
+    n = 16
+    ds = SyntheticStereo(cfg, n_frames=n, seed=0)
+    lefts = np.stack([ds[i][0] for i in range(n)])
+    rights = np.stack([ds[i][1] for i in range(n)])
+    recs = {}
+    for dev in ("cpu", "cuda"):
+        before = match_kernel.LAUNCHES
+        recs[dev] = Tracker(cfg, device=dev).process_chunk(lefts, rights,
+                                                           ds.timestamps)
+        assert match_kernel.LAUNCHES - before == (0 if dev == "cpu"
+                                                  else 4 * n)
+    cpu, gpu = recs["cpu"], recs["cuda"]
+    assert [r.state for r in gpu] == [r.state for r in cpu] == [OK] * n
+    np.testing.assert_allclose(np.stack([r.c_w for r in gpu]),
+                               np.stack([r.c_w for r in cpu]), atol=5e-3)

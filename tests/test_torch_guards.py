@@ -33,7 +33,8 @@ def test_port_imports_no_jax():
                 "geometry.sim3", "place.vocabulary", "place.database",
                 "solvers.sim3_solver", "solvers.pose_graph",
                 "pipeline.loop_closing", "pipeline.metrics",
-                "eval_loop_closing"):
+                "eval_loop_closing", "solvers.pnp", "pipeline.relocalization",
+                "frontend.stereo"):
         assert f"{pkg}.{new}" in mods, new
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -98,10 +99,18 @@ def test_system_defaults_to_the_card_and_raises_without_one(monkeypatch):
                         lambda *a, **k: built.append(a) or 1 / 0)
     # loop closing on is the default; with or without it, and with or
     # without a vocabulary, no device named means the card
-    for kwargs in (dict(), dict(enable_loop_closing=True),
-                   dict(enable_loop_closing=False), dict(vocab=object())):
-        with pytest.raises(RuntimeError, match="device=\"cpu\""):
-            slam.System(SlamConfig(), **kwargs)
+    from orb_slam_2_ros_tpu_torch.config import SENSOR_STEREO
+    from orb_slam_2_ros_tpu_torch.pipeline import relocalization
+    monkeypatch.setattr(relocalization.Relocalizer, "__init__",
+                        lambda *a, **k: built.append(a) or 1 / 0)
+    # loop closing (and with it relocalization) on is the default; with or
+    # without it, with or without a vocabulary, RGB-D or stereo, no device
+    # named means the card
+    for cfg in (SlamConfig(), SlamConfig(sensor=SENSOR_STEREO)):
+        for kwargs in (dict(), dict(enable_loop_closing=True),
+                       dict(enable_loop_closing=False), dict(vocab=object())):
+            with pytest.raises(RuntimeError, match="device=\"cpu\""):
+                slam.System(cfg, **kwargs)
     assert not built            # nothing was built, on any device
 
 
@@ -125,9 +134,30 @@ def test_state_builders_require_a_device():
     with pytest.raises(TypeError):
         vocabulary.train_vocabulary(None, SlamConfig())
     for fn in (convert.vocabulary_from_numpy, convert.loop_state_from_numpy,
-               convert.dense_gba_state_from_numpy):
+               convert.dense_gba_state_from_numpy, convert.frame_from_numpy,
+               convert.bow_database_from_numpy):
         with pytest.raises(TypeError):
             fn({})
+
+
+def test_wrappers_take_the_plain_version_only_on_the_cpu(monkeypatch):
+    """Relocalization and the stereo frame reach the matcher kernel only
+    through ``masked_best_two``: a CPU tensor takes the plain version, a
+    CUDA tensor the kernel, and the kernel's failure is an exception, never
+    a fallback."""
+    from orb_slam_2_ros_tpu_torch.ops import match_kernel
+
+    def failing(*args):
+        raise RuntimeError("kernel failed")
+    monkeypatch.setattr(match_kernel, "masked_best_two_cuda", failing)
+    rows = torch.zeros((4, 8), dtype=torch.int32)
+    meta = torch.zeros((8, 4))
+    out = match_kernel.masked_best_two(rows, meta, rows, meta)
+    assert [o.shape for o in out] == [(4,)] * 4
+    fake = torch.empty((4, 8), dtype=torch.int32, device="meta")
+    with pytest.raises(Exception):
+        match_kernel.masked_best_two(fake, meta.to("meta"), fake,
+                                     meta.to("meta"))
 
 
 def test_tf32_disabled():

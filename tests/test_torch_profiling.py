@@ -221,3 +221,47 @@ def test_loop_stage_ranges_count_every_program():
         "gba_start": X, "gba_chunk": X, "gba_finish": X}
     assert s["launches_per_call"] == 0
     assert "essential_graph" in profiling.stage_table(s["stages"], unit="call")
+
+
+def test_reloc_stage_ranges_count_every_part():
+    """The relocalization profile's ranges over one attempt of the port's
+    ``System`` (CPU, the small configuration over 16 frames): every part
+    seen once, the pose LM twice (the candidates' batch and the final one),
+    and the stages restored afterwards."""
+    import dataclasses
+
+    from orb_slam_2_ros_tpu.config import VocabConfig
+    from orb_slam_2_ros_tpu_torch import convert
+    from orb_slam_2_ros_tpu_torch.io import SyntheticRGBD
+    from orb_slam_2_ros_tpu_torch.pipeline.slam import System
+    from orb_slam_2_ros_tpu_torch.place import vocabulary
+
+    from test_torch_tracking import small_cfg
+
+    cfg = convert.config_from_dict(dataclasses.asdict(dataclasses.replace(
+        small_cfg(), vocab=VocabConfig(k=6, levels=3))))
+    n = 16
+    ds = SyntheticRGBD(cfg, n_frames=n, seed=0)
+    grays = np.stack([ds[i][0] for i in range(n)])
+    depths = np.stack([ds[i][1] for i in range(n)])
+    train = np.random.default_rng(0).integers(0, 2 ** 32, (2000, 8),
+                                              dtype=np.uint32)
+    system = System(cfg, ba_window=8, device="cpu",
+                    vocab=vocabulary.train_vocabulary(train, cfg, seed=0,
+                                                      device="cpu"))
+    system.track_chunk(grays, depths, ds.timestamps)
+    stages = profiling.RELOC_STAGES
+    before = [getattr(mod, attr) for mod, attr, _, _ in stages]
+    with profiling.stage_ranges(stages), torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        ok = system._attempt_reloc(*system._to_float_frame(grays[5],
+                                                           depths[5]))[0]
+    assert ok and system.n_relocalized == 1
+    assert [getattr(mod, attr) for mod, attr, _, _ in stages] == before
+    s = profiling.summarize(prof.events(), 1, stages, unit="attempt")
+    calls = {r["stage"]: r["calls_per_attempt"] for r in s["stages"]}
+    assert calls == {name: (2 if name == "pose_optimization" else 1)
+                     for _, _, name, _ in stages}
+    assert "candidate_ladder" in profiling.stage_table(s["stages"],
+                                                       unit="attempt")
+

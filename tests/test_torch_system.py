@@ -252,8 +252,12 @@ def test_unported_modes_raise(seq):
         tslam.System(cfg, load_map="map.npz", device="cpu")
     with pytest.raises(NotImplementedError):
         tslam.System(cfg.replace(localization_only=True), **off)
-    for sensor in (0, 1):                           # monocular, stereo
-        with pytest.raises(NotImplementedError):
-            tslam.System(cfg.replace(sensor=sensor), **off)
-        with pytest.raises(NotImplementedError):
-            tlm.LocalMapper(cfg.replace(sensor=sensor))
+    mono = cfg.replace(sensor=0)
+    with pytest.raises(NotImplementedError):
+        tslam.System(mono, **off)
+    with pytest.raises(NotImplementedError):
+        tlm.LocalMapper(mono)
+    # the stereo sensor is ported
+    stereo = cfg.replace(sensor=1)
+    assert tslam.System(stereo, **off).tracker.cfg.sensor == 1
+    assert tlm.LocalMapper(stereo).cfg.sensor == 1

@@ -224,7 +224,9 @@ def test_reset_clears_the_closer_and_metrics(seq, port_system):
 def test_system_defaults_mean_loop_closing(seq):
     off = tslam.System(seq["tcfg"], enable_loop_closing=False, device="cpu")
     assert off.loop_closer is None and not off._vocab_pending
+    assert off.relocalizer is None      # relocalization needs the BoW index
     assert off.metrics()["loops_closed"] == 0
     on = tslam.System(seq["tcfg"], vocab=seq["tvoc"], device="cpu")
     assert on.loop_closing_enabled and on.loop_closer.background_gba
-    assert on.relocalizer is None
+    # the relocalizer shares the closer's vocabulary (and its BoW index)
+    assert on.relocalizer.vocab is on.loop_closer.vocab is seq["tvoc"]
