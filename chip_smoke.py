@@ -78,7 +78,42 @@ Phases, each reported on its own lines:
      synthetic stereo orbit (the reference bench's two stereo passes):
      every frame OK, the kernel launched 4 times per frame plus 8 times per
      mapping step, the ATE of both below 0.05 m, and the kernel on the four
-     calls of frame 48 equal to the plain version and timed as in phase 4.
+     calls of frame 48 equal to the plain version and timed as in phase 4;
+     then the forced loss of phase 11 on a stereo ``System(cfg)`` (loop
+     closing and relocalization on) over the first 32 pairs: relocalized
+     at the first visible pair with ``build_stereo`` frames (the
+     reference's own stereo relocalization builds RGB-D frames from the
+     right image, a fault the port does not copy), 1 launch per attempt;
+ 14. mono: the reference bench's monocular pass,
+     ``System(SlamConfig(sensor=SENSOR_MONOCULAR),
+     enable_loop_closing=False)`` over the 96 frames of phase 5's orbit in
+     chunks of 8: the first 32 (two-view initialization and warm-up), then
+     the other 64. The initialization frame, every frame after the first OK
+     frame OK, 64/64 OK over frames 32-95, the map on the card, every pose
+     and point finite, the Sim3-aligned ATE below its limit (printed beside
+     the reference's CPU number), the kernel launched 4 times per tracked
+     frame plus 8 times per mapping step (the initializer's matching is no
+     kernel call), and the kernel on one mono frame's four calls equal to
+     the plain version and timed as in phase 4;
+ 15. map I/O, localization-only mode and map merge at full width: an RGB-D
+     session over the first 48 frames of the loop saves its map and
+     ``System(cfg, load_map=path)`` holds it equal field by field; a
+     session maps the view straight ahead and localization-only mode
+     tracks the yaw sequence of ``tests/test_localization_vo.py`` on it
+     (every frame OK, no keyframe, the map left behind, at least 30
+     inliers on the visual-odometry points, the final orientation within
+     5 degrees), the kernel launched 6 times per tracked frame (the VO
+     search and its widened retry) plus once per relocalization attempt,
+     one VO call equal to the plain version and timed; two sessions over
+     frames 0-47 and 16-79 of the loop (the second in its own world
+     frame) merge with ``System.merge_map`` (counts added, a further chunk
+     tracked OK on the merged map);
+ 16. the vocabulary at ORBvoc scale: the complete k = 10, L = 6 tree
+     (1,111,110 nodes) of ``tests/test_orbvoc_scale.py`` written in DBoW2's
+     binary format and loaded with ``load_orbvoc_binary`` onto the card,
+     and ``transform`` of one frame's 1,536 descriptors on the card: the
+     load and the transform timed, the words equal to the CPU's and at
+     least half of them the true leaf.
 
 The frames are rendered on the host by worker processes that end before
 tracking starts. The last two lines are a JSON summary of the kernels and
@@ -91,6 +126,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -119,6 +155,23 @@ RELOC_MAP_FRAMES = 32   # the forced loss's orbit, mapped before the loss
 RELOC_POSE_LIMIT_M = 0.08   # tests/test_slam_system.py's relocalization gate
 N_STEREO_FRAMES = 64    # the reference bench's stereo passes (bench.py:263)
 STEREO_ATE_LIMIT_M = 0.05   # tests/test_stereo_tracking.py's limit
+N_MONO_WARM = 32        # the mono pass's initialization and warm-up frames
+MONO_CAPTURE_FRAME = 48
+# the reference's mono pass on a CPU (tools/reference_passes.py mono): its
+# first OK frame, OK frames in the two parts, keyframes, points, Sim3 ATE
+REFERENCE_MONO = {"first_ok": 2, "ok_first_32": 30, "ok_last_64": 64,
+                  "keyframes": 5, "map_points": 717, "ate_m": 0.056730}
+MAP_IO_FRAMES = 48      # the saved session: the first three chunks of the loop
+# two overlapping sessions of the loop, the shortest found with 3 keyframes
+# of each in the frames both see (keyframes at frames 19, 31, 47 of the
+# first and 16, 17, 26, 38 of the second, on an NVIDIA H100 80GB HBM3 at
+# 700.00 W)
+MERGE_WINDOWS = ((0, 48), (16, 80))
+ORBVOC_K, ORBVOC_L = 10, 6
+# the mono pass's first OK frame on the card, and its Sim3 ATE limit: 1.5 x
+# the first chip run's 0.056734 m, on an NVIDIA H100 80GB HBM3 at 700.00 W
+MONO_INIT_FRAME = 2
+MONO_ATE_LIMIT_M = 0.0851
 # (N, M, gates) beside the path's two shapes
 EDGE_CASES = ((1531, 1237, "random"), (77, 1, "random"), (64, 32767, "random"),
               (300, 500, "closed"), (257, 333, "open"))
@@ -179,8 +232,9 @@ def time_kernel(match_kernel, bench, timing, label, args, floor):
 
 
 def run_main_path(torch, match_kernel, bench, timing):
-    """Phase 5. Returns the number of kernel launches on the path and the
-    matcher's arguments in frame ``CAPTURE_FRAME``."""
+    """Phase 5. Returns the number of kernel launches on the path, the
+    matcher's arguments in frame ``CAPTURE_FRAME``, and the orbit (dataset
+    and gray images) for phase 14."""
     from orb_slam_2_ros_tpu_torch.config import SENSOR_RGBD, SlamConfig
     from orb_slam_2_ros_tpu_torch.frontend import matcher
     from orb_slam_2_ros_tpu_torch.io import ate_rmse, render_frames
@@ -242,7 +296,7 @@ def run_main_path(torch, match_kernel, bench, timing):
         raise AssertionError(
             f"{tracker.n_kfs} keyframes and {int(tracker.map.n_mps)} map "
             f"points; an exact matcher gives {N_KEYFRAMES} and {N_MAP_POINTS}")
-    return launches, path_args
+    return launches, path_args, (ds, grays)
 
 
 def render_loop():
@@ -407,8 +461,9 @@ def run_mapping_path(torch, match_kernel, timing, loop_seq):
 
 def run_full_system(torch, match_kernel, timing, loop_seq):
     """Phase 9. Returns the number of kernel launches on the path, how many
-    of them loop closing made, and the matcher's arguments in the accepted
-    ladder's three calls and the correction's first fuse call."""
+    of them loop closing made, the matcher's arguments in the accepted
+    ladder's three calls and the correction's first fuse call, and the
+    vocabulary."""
     from orb_slam_2_ros_tpu_torch.frontend import matcher
     from orb_slam_2_ros_tpu_torch.pipeline import loop_closing
     from orb_slam_2_ros_tpu_torch.pipeline.slam import System
@@ -569,7 +624,7 @@ def run_full_system(torch, match_kernel, timing, loop_seq):
     if not ate < FULL_ATE_LIMIT_M:
         raise AssertionError(f"ATE {ate} m >= {FULL_ATE_LIMIT_M} m")
     return (launches, lc_launches,
-            captured["accepted_ladder"] + captured["correction"])
+            captured["accepted_ladder"] + captured["correction"], voc)
 
 
 def run_relocalization(torch, match_kernel, timing):
@@ -615,14 +670,7 @@ def run_relocalization(torch, match_kernel, timing):
         return out
 
     system._attempt_reloc = measured_attempt
-    tracked = [0]
-    process_chunk = system.tracker.process_chunk
-
-    def counted(grays_, *args, **kwargs):
-        tracked[0] += len(grays_)
-        return process_chunk(grays_, *args, **kwargs)
-
-    system.tracker.process_chunk = counted
+    tracked = count_tracked(system)
     C = system.tracker.CHUNK
     h = C // 2
     # one chunk: the first half blind (zeros: no keypoints, LOST), the
@@ -689,9 +737,11 @@ def run_relocalization(torch, match_kernel, timing):
 
 
 def run_stereo(torch, match_kernel, bench, timing):
-    """Phase 13: the reference bench's two stereo passes at full width.
-    Returns the kernel launches of both passes and the matcher's arguments
-    in the four calls of frame ``CAPTURE_FRAME``."""
+    """Phase 13: the reference bench's two stereo passes at full width,
+    then the stereo forced loss. Returns the kernel launches of both
+    passes, those of the forced loss and of each of its relocalization
+    attempts, and the matcher's arguments in the four calls of frame
+    ``CAPTURE_FRAME``."""
     from orb_slam_2_ros_tpu_torch.config import SENSOR_STEREO, SlamConfig
     from orb_slam_2_ros_tpu_torch.frontend import matcher
     from orb_slam_2_ros_tpu_torch.io import ate_rmse, render_frames
@@ -761,7 +811,450 @@ def run_stereo(torch, match_kernel, bench, timing):
         raise AssertionError(f"stereo ATE {ate} and {s_ate} m >= "
                              f"{STEREO_ATE_LIMIT_M} m")
     check_pools(system.tracker.map)
-    return track_launches + sys_launches, path_args
+    loss_launches, loss_attempts = run_stereo_loss(torch, match_kernel, cfg)
+    return (track_launches + sys_launches, loss_launches, loss_attempts,
+            path_args)
+
+
+def run_stereo_loss(torch, match_kernel, cfg):
+    """Phase 13, second part: the forced loss of phase 11 on a stereo
+    ``System(cfg)``, on the 32-pair orbit (over 32 frames the revisited
+    pairs lie far enough from the last pose that tracking alone loses
+    them; the first 32 of the 64-pair orbit do not). Returns the kernel
+    launches of the part and those of each relocalization attempt."""
+    from orb_slam_2_ros_tpu_torch.io import render_frames, umeyama_align
+    from orb_slam_2_ros_tpu_torch.pipeline import loop_closing, relocalization
+    from orb_slam_2_ros_tpu_torch.pipeline.slam import System
+    from orb_slam_2_ros_tpu_torch.pipeline.tracking import LOST, OK
+
+    n = RELOC_MAP_FRAMES
+    t0 = time.perf_counter()
+    ds, lefts, rights = render_frames(cfg, n, RENDER_WORKERS, stereo=True,
+                                      seed=0, trajectory="orbit")
+    log(f"rendered the {n}-pair stereo orbit in "
+        f"{time.perf_counter() - t0:.1f} s (host, {RENDER_WORKERS} processes)")
+    system = System(cfg)    # loop closing and with it relocalization on
+    attempts = count_attempts(system, match_kernel)
+    tracked = count_tracked(system)
+    C = system.tracker.chunk
+    h = C // 2
+    lost_l = np.concatenate([np.zeros_like(lefts[:h]), lefts[8:8 + C - h]])
+    lost_r = np.concatenate([np.zeros_like(rights[:h]), rights[8:8 + C - h]])
+    ts2 = [ds.timestamps[n - 1] + (i + 1) / 30.0 for i in range(C)]
+    match_kernel.LAUNCHES = 0
+    t0 = time.perf_counter()
+    system.track_chunk(lefts[:n], rights[:n], ds.timestamps[:n])
+    recs = system.track_chunk(lost_l, lost_r, ts2)
+    torch.cuda.synchronize()
+    launches = match_kernel.LAUNCHES
+    lc = system.loop_closer
+    per_attempt = [a[1] for a in attempts]
+    states = [r.state for r in recs]
+    _, R, t = umeyama_align(np.stack([r.c_w for r in system.records[:n]]),
+                            np.stack([ds.gt_pose_wc(i)[1] for i in range(n)]))
+    err = [float(np.linalg.norm(R @ r.c_w + t - ds.gt_pose_wc(8 + i)[1]))
+           for i, r in enumerate(recs[h:])]
+    log(f"stereo forced loss: {time.perf_counter() - t0:.2f} s, states "
+        f"{states}, {len(attempts)} attempts ({sum(a[0] for a in attempts)} "
+        f"successful), {tracked[0]} pairs tracked (the replay included), "
+        f"pose error after the loss {[round(e, 4) for e in err]} m, "
+        f"{launches} matcher kernel launches ({sum(per_attempt)} by "
+        f"relocalization: {per_attempt})")
+    if states != [LOST] * h + [OK] * (C - h):
+        raise AssertionError(f"stereo lost-lag above one frame: {states}")
+    if len(attempts) != h + 1 or not attempts[-1][0]:
+        raise AssertionError(f"stereo attempts {attempts}")
+    if per_attempt != [relocalization.LAUNCHES] * len(attempts):
+        raise AssertionError(f"launches per attempt {per_attempt}")
+    expected = (4 * tracked[0] + 8 * system.mapper.n_executed
+                + sum(per_attempt)
+                + loop_closing.LADDER_LAUNCHES * lc.n_ladders
+                + loop_closing.N_FUSE_ROWS * lc.n_corrections)
+    if launches != expected:
+        raise AssertionError(f"matcher kernel launched {launches} times, the "
+                             f"path makes {expected}")
+    if max(err) >= RELOC_POSE_LIMIT_M:
+        raise AssertionError(f"relocalized poses {err} m off")
+    check_pools(system.tracker.map)
+    return launches, per_attempt
+
+
+def count_attempts(system, match_kernel):
+    """Record (success, kernel launches) of each relocalization attempt of
+    the system, counted at the kernel's wrapper."""
+    attempts = []
+    attempt = system._attempt_reloc
+
+    def counted(*args):
+        launched = match_kernel.LAUNCHES
+        out = attempt(*args)
+        attempts.append((out[0], match_kernel.LAUNCHES - launched))
+        return out
+
+    system._attempt_reloc = counted
+    return attempts
+
+
+def count_tracked(system):
+    """Count the frames the system's tracker tracks, replays included."""
+    tracked = [0]
+    process_chunk = system.tracker.process_chunk
+
+    def counted(grays, *args, **kwargs):
+        tracked[0] += len(grays)
+        return process_chunk(grays, *args, **kwargs)
+
+    system.tracker.process_chunk = counted
+    return tracked
+
+
+def check_finite(torch, m):
+    """Every pose and every valid point of the map is finite."""
+    for f in ("kf_q", "kf_t"):
+        if not bool(torch.isfinite(getattr(m, f)).all()):
+            raise AssertionError(f"{f} is not finite")
+    if not bool(torch.isfinite(m.mp_pos[m.mp_valid]).all()):
+        raise AssertionError("a valid map point is not finite")
+
+
+def run_mono(torch, match_kernel, bench, timing, orbit):
+    """Phase 14: the reference bench's mono pass on phase 5's orbit.
+    Returns the kernel launches of the pass, the matcher's arguments in the
+    four calls of the first tracked frame from ``MONO_CAPTURE_FRAME`` on,
+    and the initialization's host seconds."""
+    from orb_slam_2_ros_tpu_torch.config import SENSOR_MONOCULAR, SlamConfig
+    from orb_slam_2_ros_tpu_torch.frontend import matcher
+    from orb_slam_2_ros_tpu_torch.io import ate_rmse
+    from orb_slam_2_ros_tpu_torch.pipeline.slam import System
+    from orb_slam_2_ros_tpu_torch.pipeline.tracking import OK
+
+    ds, grays = orbit
+    n = len(grays)
+    cfg = SlamConfig(sensor=SENSOR_MONOCULAR)
+    system = System(cfg, enable_loop_closing=False)
+    if system.device.type != "cuda" or system.tracker.chunk != 8:
+        raise AssertionError(f"mono System chose {system.device}, chunks of "
+                             f"{system.tracker.chunk}")
+    init_s = []
+    process = system.mono_init.process
+
+    def timed_process(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = process(*args)
+        torch.cuda.synchronize()
+        init_s.append(time.perf_counter() - t0)
+        return out
+
+    system.mono_init.process = timed_process
+    tracked = [0]
+    path_args = []
+    process_chunk = system.tracker.process_chunk
+
+    def counted(grays_, *args, **kwargs):
+        first = len(system.tracker.records)
+        tracked[0] += len(grays_)
+        if path_args or first < MONO_CAPTURE_FRAME:
+            return process_chunk(grays_, *args, **kwargs)
+        with timing.capture_calls(matcher, "masked_best_two") as calls:
+            out = process_chunk(grays_, *args, **kwargs)
+        path_args.extend(
+            (label.replace("path:", f"mono path, frame {first}:"), a)
+            for label, a in bench.label_path_calls(calls[:4]))
+        return out
+
+    system.tracker.process_chunk = counted
+    match_kernel.LAUNCHES = 0
+    t0 = time.perf_counter()
+    first_recs = system.track_chunk(grays[:N_MONO_WARM], None,
+                                    ds.timestamps[:N_MONO_WARM])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    rest = system.track_chunk(grays[N_MONO_WARM:], None,
+                              ds.timestamps[N_MONO_WARM:])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = match_kernel.LAUNCHES
+    steps = system.mapper.n_executed
+    states = [r.state for r in system.records]
+    first_ok = states.index(OK) if OK in states else None
+    ok = [r for r in system.records if r.state == OK]
+    ate = float(ate_rmse(np.stack([r.c_w for r in ok]),
+                         np.stack([ds.gt_pose_wc(r.frame_id)[1] for r in ok]),
+                         with_scale=True))
+    n_ok_a = sum(r.state == OK for r in first_recs)
+    n_ok_b = sum(r.state == OK for r in rest)
+    m = system.tracker.map
+    log(f"mono: first OK frame {first_ok}, {n_ok_a}/{N_MONO_WARM} OK in the "
+        f"first part, {n_ok_b}/{n - N_MONO_WARM} after, Sim3 ATE {ate:.6f} m "
+        f"(limit {MONO_ATE_LIMIT_M} m), {system.tracker.n_kfs} keyframes, "
+        f"{int(m.mp_valid.sum())} map points, {steps} mapping steps, "
+        f"{tracked[0]} frames tracked, {launches} matcher kernel launches; "
+        f"the reference's same pass on a CPU: {json.dumps(REFERENCE_MONO)}")
+    log(f"mono: initialization {len(init_s)} calls, "
+        f"{[round(x, 3) for x in init_s]} s (host, synchronized); "
+        f"{t1 - t0:.2f} s for the first {N_MONO_WARM} frames, "
+        f"{(n - N_MONO_WARM) / (t2 - t1):.2f} fps over the other "
+        f"{n - N_MONO_WARM} (host clock, mapping included)")
+    if first_ok != MONO_INIT_FRAME:
+        raise AssertionError(f"mono initialized at frame {first_ok}, not "
+                             f"{MONO_INIT_FRAME}")
+    if any(st != OK for st in states[first_ok:]):
+        raise AssertionError(f"mono lost a frame after the first OK: "
+                             f"{states}")
+    if n_ok_b != n - N_MONO_WARM:
+        raise AssertionError(f"mono: {n_ok_b} of {n - N_MONO_WARM} OK")
+    if launches != 4 * tracked[0] + 8 * steps:
+        raise AssertionError(f"matcher kernel launched {launches} times, the "
+                             f"path makes {4 * tracked[0]} + {8 * steps}")
+    check_pools(m)
+    check_finite(torch, m)
+    if not ate < MONO_ATE_LIMIT_M:
+        raise AssertionError(f"mono ATE {ate} m >= {MONO_ATE_LIMIT_M} m")
+    if len(path_args) != 4:
+        raise AssertionError("the mono frame's calls were not captured")
+    return launches, path_args, init_s
+
+
+def _render_views_block(job):
+    """Worker of ``render_views``: ray-cast views of the seeded room."""
+    from orb_slam_2_ros_tpu_torch.io.synthetic import make_room, render
+    cam, poses = job
+    planes = make_room(0)
+    return [render(planes, R, c, cam) for R, c in poses]
+
+
+def render_views(cam, poses):
+    """(grays, depths) of the room seen from ``poses`` [(R_wc, c_w)], by
+    ``RENDER_WORKERS`` processes that end when the call returns."""
+    import concurrent.futures
+    import multiprocessing
+    blocks = [poses[w::RENDER_WORKERS] for w in range(RENDER_WORKERS)]
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=RENDER_WORKERS,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        done = list(pool.map(_render_views_block,
+                             [(cam, b) for b in blocks]))
+    frames = [None] * len(poses)
+    for w, views in enumerate(done):
+        frames[w::RENDER_WORKERS] = views
+    return (np.stack([f[0] for f in frames]),
+            np.stack([f[1] for f in frames]))
+
+
+def _yaw_pose(yaw):
+    """tests/test_localization_vo.py's camera: at the origin, yawed."""
+    cy, sy = np.cos(yaw), np.sin(yaw)
+    return (np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]], np.float32),
+            np.zeros(3, np.float32))
+
+
+def run_map_io(torch, match_kernel, bench, timing, loop_seq, voc, workdir):
+    """Phase 15: save and load, localization-only mode, merge. Returns the
+    kernel launches of the localization run, the matcher's arguments in
+    one VO search call, and the merge's numbers."""
+    from orb_slam_2_ros_tpu_torch.frontend import matcher
+    from orb_slam_2_ros_tpu_torch.pipeline import relocalization
+    from orb_slam_2_ros_tpu_torch.pipeline.slam import System
+    from orb_slam_2_ros_tpu_torch.pipeline.tracking import OK
+
+    cfg, ds, grays, depths = loop_seq
+
+    # 1-2: a mapping session saves its map; a new System loads it
+    n = MAP_IO_FRAMES
+    session = System(cfg, vocab=voc)
+    session.track_chunk(grays[:n], depths[:n], ds.timestamps[:n])
+    path = os.path.join(workdir, "session.npz")
+    t0 = time.perf_counter()
+    session.save_map(path)
+    t1 = time.perf_counter()
+    loaded = System(cfg, load_map=path)
+    t2 = time.perf_counter()
+    saved_m, loaded_m = session.tracker.map, loaded.tracker.map
+    differ = [f for f in saved_m._fields
+              if not torch.equal(getattr(saved_m, f), getattr(loaded_m, f))]
+    if differ or loaded.loop_closer._n_ingested != \
+            session.loop_closer._n_ingested:
+        raise AssertionError(f"the loaded map differs in {differ}")
+    if not torch.equal(loaded.vocab.node_desc, voc.node_desc):
+        raise AssertionError("the loaded vocabulary differs")
+    log(f"map I/O: {session.tracker.n_kfs} keyframes, "
+        f"{int(saved_m.n_mps)} points, saved in {t1 - t0:.2f} s "
+        f"({os.path.getsize(path) / 1e6:.1f} MB), loaded in {t2 - t1:.2f} s, "
+        f"every field equal")
+
+    # 3-4: localization-only mode on a map of the view straight ahead
+    yaws = np.concatenate([np.zeros(3), np.linspace(0.0, 1.4, 29)])
+    g0, d0 = render_views(cfg.camera, [_yaw_pose(0.0)] * 2)
+    gy, dy = render_views(cfg.camera, [_yaw_pose(y) for y in yaws])
+    mapper = System(cfg, enable_local_ba=False, enable_loop_closing=False)
+    mapper.track_chunk(g0, d0)
+    loc_path = os.path.join(workdir, "straight_ahead.npz")
+    mapper.save_map(loc_path)
+    loc = System(cfg.replace(localization_only=True), enable_local_ba=False,
+                 load_map=loc_path)
+    n_mps = int(loc.tracker.map.n_mps)
+    tracked = count_tracked(loc)
+    attempts = count_attempts(loc, match_kernel)
+    match_kernel.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with timing.capture_calls(matcher, "masked_best_two") as calls:
+        recs = loc.track_chunk(gy, dy)
+    torch.cuda.synchronize()
+    loc_s = time.perf_counter() - t0
+    launches = match_kernel.LAUNCHES
+    # a frame's calls: the motion model and its widened retry, the
+    # reference keyframe, the VO search and its widened retry, the local map
+    per_frame = 6
+    vo_args = [(f"path: localization VO search, last frame's temporal "
+                f"points into frame 20 ({c[0].shape[0]}x{c[2].shape[0]})",
+                tuple(a.clone() for a in c))
+               for c in calls[20 * per_frame + 3:20 * per_frame + 4]]
+    per_attempt = [a[1] for a in attempts]
+    states = [r.state for r in recs]
+    R_gt, _ = _yaw_pose(yaws[-1])
+    ang = float(np.degrees(np.arccos(np.clip(
+        (np.trace(R_gt.T @ recs[-1].R_wc) - 1) / 2, -1, 1))))
+    log(f"localization: {sum(s == OK for s in states)}/{len(recs)} OK in "
+        f"{loc_s:.2f} s, map inliers {[r.n_map_inliers for r in recs]}, "
+        f"inliers {[r.n_inliers for r in recs]}, final orientation "
+        f"{ang:.3f} deg off, {len(attempts)} relocalization attempts "
+        f"({sum(a[0] for a in attempts)} successful), {tracked[0]} frames "
+        f"tracked, {launches} matcher kernel launches")
+    if states != [OK] * len(recs) or any(r.is_keyframe for r in recs):
+        raise AssertionError(f"localization states {states}")
+    if not (recs[1].n_map_inliers > 30 and recs[-1].n_map_inliers < 10
+            and recs[-1].n_inliers >= 30 and ang < 5.0):
+        raise AssertionError("localization left the map badly")
+    if int(loc.tracker.map.n_mps) != n_mps:
+        raise AssertionError("localization changed the map")
+    if per_attempt != [relocalization.LAUNCHES] * len(attempts):
+        raise AssertionError(f"launches per attempt {per_attempt}")
+    if launches != per_frame * tracked[0] + sum(per_attempt):
+        raise AssertionError(
+            f"matcher kernel launched {launches} times, the path makes "
+            f"{per_frame} x {tracked[0]} + {sum(per_attempt)}")
+    if len(vo_args) != 1 or vo_args[0][1][0].shape[0] != cfg.orb.max_kps:
+        raise AssertionError("the VO call was not captured")
+
+    # 5: two sessions of the loop, the second in its own world frame
+    sessions = []
+    for a, b in MERGE_WINDOWS:
+        s = System(cfg, vocab=voc, enable_loop_closing=False)
+        s.track_chunk(grays[a:b], depths[a:b], ds.timestamps[a:b])
+        sessions.append(s)
+    first, second = sessions
+    # keyframes of each session inside the frames both sessions saw (the
+    # second session counts its frames from its own first one)
+    lo, hi = MERGE_WINDOWS[1][0], MERGE_WINDOWS[0][1]
+    overlap = []
+    for s, (a, _) in zip(sessions, MERGE_WINDOWS):
+        fid = s.tracker.map.kf_frame_id[s.tracker.map.kf_valid].cpu().numpy()
+        overlap.append(int(((fid + a >= lo) & (fid + a < hi)).sum()))
+    if min(overlap) < 3:
+        raise AssertionError(f"keyframes in the overlap: {overlap}")
+    merge_path = os.path.join(workdir, "second_session.npz")
+    second.save_map(merge_path)
+    n1, n2 = first.tracker.n_kfs, second.tracker.n_kfs
+    p1, p2 = int(first.tracker.map.n_mps), int(second.tracker.map.n_mps)
+    t0 = time.perf_counter()
+    if not first.merge_map(merge_path):
+        raise AssertionError("the sessions did not merge")
+    torch.cuda.synchronize()
+    merge_s = time.perf_counter() - t0
+    m = first.tracker.map
+    if (int(m.n_kfs), int(m.n_mps)) != (n1 + n2, p1 + p2):
+        raise AssertionError(f"merged counts {int(m.n_kfs)}, {int(m.n_mps)}")
+    b = MERGE_WINDOWS[0][1]
+    more = first.track_chunk(grays[b:b + 16], depths[b:b + 16],
+                             ds.timestamps[b:b + 16])
+    if any(r.state != OK for r in more):
+        raise AssertionError(f"after the merge: {[r.state for r in more]}")
+    check_pools(first.tracker.map)
+    merge = {"keyframes": [n1, n2], "points": [p1, p2],
+             "keyframes_in_overlap": overlap, "seconds": merge_s}
+    log(f"merge: sessions of {n1} and {n2} keyframes ({overlap} in the "
+        f"frames both saw), {p1} and {p2} points merged in {merge_s:.2f} s; "
+        f"a further chunk of 16 tracked OK")
+    return launches, per_attempt, vo_args, merge
+
+
+def _orbvoc_tree(rng):
+    """The complete (k=10, L=6) tree of tests/test_orbvoc_scale.py in
+    DBoW2's record layout, breadth-first: each child is its parent's
+    descriptor with fewer bits flipped at each level. Returns (parents,
+    is_leaf, descs, weights, leaf_bits)."""
+    k, L = ORBVOC_K, ORBVOC_L
+    flips = [96, 40, 24, 14, 8, 5]
+    level_bits = [rng.integers(0, 2, (k, 256), dtype=np.uint8)]
+    for lvl in range(1, L):
+        parent = np.repeat(level_bits[-1], k, axis=0)
+        noise = (rng.uniform(size=parent.shape)
+                 < flips[lvl] / 256.0).astype(np.uint8)
+        level_bits.append(parent ^ noise)
+    descs = np.concatenate(
+        [np.packbits(b, axis=1, bitorder="little") for b in level_bits])
+    sizes = [k ** lvl for lvl in range(1, L + 1)]
+    starts = np.cumsum([0] + sizes)
+    ids = np.arange(1, sum(sizes) + 1)
+    lvl = np.searchsorted(starts[1:], ids - 1, side="right")
+    slot = (ids - 1) - starts[lvl]
+    parents = np.where(lvl == 0, 0,
+                       starts[np.maximum(lvl - 1, 0)] + slot // k + 1)
+    weights = np.zeros(sum(sizes))
+    weights[starts[L - 1]:] = rng.uniform(0.5, 2.0, k ** L)
+    return (parents.astype(np.int32), (lvl == L - 1).astype(np.uint8), descs,
+            weights, level_bits[-1])
+
+
+def run_vocab_scale(torch, workdir):
+    """Phase 16. Returns the load seconds and the transform's ms."""
+    from orb_slam_2_ros_tpu_torch.config import SlamConfig, VocabConfig
+    from orb_slam_2_ros_tpu_torch.place import vocabulary
+
+    t0 = time.perf_counter()
+    parents, is_leaf, descs, weights, leaf_bits = _orbvoc_tree(
+        np.random.default_rng(0))
+    path = os.path.join(workdir, "orbvoc_scale.bin")
+    vocabulary.write_orbvoc_bin(path, ORBVOC_K, ORBVOC_L, parents, is_leaf,
+                                descs, weights)
+    t1 = time.perf_counter()
+    cfg = SlamConfig(vocab=VocabConfig(k=ORBVOC_K, levels=ORBVOC_L,
+                                       levels_up=4))
+    voc = vocabulary.load_orbvoc_binary(path, cfg, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t1
+    P = cfg.orb.max_kps
+    pick = np.random.default_rng(1).choice(leaf_bits.shape[0], P,
+                                           replace=False)
+    desc = np.packbits(leaf_bits[pick], axis=1, bitorder="little")
+    desc = torch.from_numpy(np.ascontiguousarray(desc).view(np.int32)).cuda()
+    valid = torch.ones((P,), dtype=torch.bool, device="cuda")
+    word, _, _ = vocabulary.transform(voc, desc, valid)
+    cpu_voc = voc._replace(node_desc=voc.node_desc.cpu(),
+                           word_weight=voc.word_weight.cpu())
+    cpu_word, _, _ = vocabulary.transform(cpu_voc, desc.cpu(), valid.cpu())
+    if not torch.equal(word.cpu(), cpu_word):
+        raise AssertionError("the card's words differ from the CPU's")
+    exact = float((word.cpu().numpy() == pick).mean())
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    reps = 20
+    start.record()
+    for _ in range(reps):
+        vocabulary.transform(voc, desc, valid)
+    end.record()
+    torch.cuda.synchronize()
+    transform_ms = start.elapsed_time(end) / reps
+    log(f"vocabulary at ORBvoc scale: {voc.node_desc.shape[0]} nodes, "
+        f"{voc.num_words} words; tree built and written in {t1 - t0:.1f} s "
+        f"({os.path.getsize(path) / 1e6:.1f} MB), loaded onto the card in "
+        f"{load_s:.2f} s; transform of {P} descriptors {transform_ms:.3f} ms "
+        f"(CUDA events over {reps} calls, host-bound), words equal to the "
+        f"CPU's, {exact:.3f} of them the true leaf")
+    if voc.node_desc.shape[0] != len(parents) or exact < 0.5:
+        raise AssertionError(f"{voc.node_desc.shape[0]} nodes, exact-leaf "
+                             f"rate {exact}")
+    return load_s, transform_ms
 
 
 def check_and_time(torch, match_kernel, bench, timing, cases, floor, err,
@@ -816,7 +1309,8 @@ def main():
              for label, args in shape_cases]
 
     # 5. main path
-    launches, path_args = run_main_path(torch, match_kernel, bench, timing)
+    launches, path_args, orbit = run_main_path(torch, match_kernel, bench,
+                                               timing)
 
     # 6. the kernel on the path's own arguments
     for label, args in path_args:
@@ -842,7 +1336,7 @@ def main():
                                  floor))
 
     # 9. the full system, loop closing on
-    full_launches, lc_launches, loop_args = run_full_system(
+    full_launches, lc_launches, loop_args, voc = run_full_system(
         torch, match_kernel, timing, loop_seq)
 
     # 10. the kernel on the loop-closing calls' own arguments
@@ -862,26 +1356,50 @@ def main():
     err = check_and_time(torch, match_kernel, bench, timing, reloc_args,
                          floor, err, timed)
 
-    # 13. the stereo sensor at full width, then its frame's four calls
-    stereo_launches, stereo_args = run_stereo(torch, match_kernel, bench,
-                                              timing)
+    # 13. the stereo sensor at full width, its frame's four calls, and
+    # its forced loss
+    (stereo_launches, stereo_loss_launches, stereo_attempts,
+     stereo_args) = run_stereo(torch, match_kernel, bench, timing)
     err = check_and_time(torch, match_kernel, bench, timing, stereo_args,
                          floor, err, timed)
+
+    # 14. the monocular sensor: the reference bench's mono pass, then the
+    # kernel on one mono frame's four calls
+    mono_launches, mono_args, mono_init_s = run_mono(
+        torch, match_kernel, bench, timing, orbit)
+    err = check_and_time(torch, match_kernel, bench, timing, mono_args,
+                         floor, err, timed)
+
+    # 15. map I/O, localization-only mode and the merge, then the kernel on
+    # one VO search call; 16. the vocabulary at ORBvoc scale
+    with tempfile.TemporaryDirectory() as workdir:
+        (loc_launches, loc_attempts, vo_args, merge) = run_map_io(
+            torch, match_kernel, bench, timing, loop_seq, voc, workdir)
+        err = check_and_time(torch, match_kernel, bench, timing, vo_args,
+                             floor, err, timed)
+        vocab_load_s, vocab_transform_ms = run_vocab_scale(torch, workdir)
 
     log(f"matcher kernel launches: {launches} on the tracking path, "
         f"{map_launches} on the mapping path, {full_launches} on the full "
         f"system's path ({lc_launches} of them by loop closing), "
         f"{reloc_path_launches} on the relocalization path "
         f"({sum(reloc_launches)} by relocalization), {stereo_launches} on "
-        f"the stereo paths")
+        f"the stereo paths, {stereo_loss_launches} on the stereo forced "
+        f"loss, {mono_launches} on the mono path, {loc_launches} on the "
+        f"localization path")
     by_path = {"tracking": launches, "mapping": map_launches,
                "full_system": full_launches,
                "loop_closing_within_full_system": lc_launches,
                "relocalization": reloc_path_launches,
                "relocalization_attempts": reloc_launches,
-               "stereo": stereo_launches}
+               "stereo": stereo_launches,
+               "stereo_relocalization": stereo_loss_launches,
+               "stereo_relocalization_attempts": stereo_attempts,
+               "mono": mono_launches, "localization": loc_launches,
+               "localization_relocalization_attempts": loc_attempts}
     launches += (map_launches + full_launches + reloc_path_launches
-                 + stereo_launches)
+                 + stereo_launches + stereo_loss_launches + mono_launches
+                 + loc_launches)
 
     # the headline numbers are the local-map search's, the largest call of
     # a frame: random gates at its shape; "cases" holds every case
@@ -900,6 +1418,9 @@ def main():
         "host_us_per_call": main_case["host_us_per_call"],
         "relocalization_attempt_ms": {"successful": reloc_ok_ms,
                                       "failed": reloc_fail_ms},
+        "mono_init_s": mono_init_s, "merge": merge,
+        "orbvoc_load_s": vocab_load_s,
+        "orbvoc_transform_ms": vocab_transform_ms,
         "cases": timed}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

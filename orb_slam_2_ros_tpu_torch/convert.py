@@ -57,7 +57,9 @@ def _as_dict(d):
     return d._asdict() if hasattr(d, "_asdict") else dict(d)
 
 
-def _to_tensor(a, device) -> torch.Tensor:
+def to_tensor(a, device) -> torch.Tensor:
+    """A numpy array (or number) as a tensor on ``device``; uint32 words
+    as int32 with the same bits."""
     a = np.array(a)     # a writable copy, 0-d arrays stay 0-d
     if a.dtype == np.uint32:
         a = a.view(np.int32)
@@ -66,12 +68,12 @@ def _to_tensor(a, device) -> torch.Tensor:
 
 def map_state_from_numpy(d, device) -> MapState:
     d = _as_dict(d)
-    return MapState(**{f: _to_tensor(d[f], device) for f in MapState._fields})
+    return MapState(**{f: to_tensor(d[f], device) for f in MapState._fields})
 
 
 def track_carry_from_numpy(d, device) -> TrackCarry:
     d = _as_dict(d)
-    vals = {f: _to_tensor(d[f], device) for f in TrackCarry._fields if f != "m"}
+    vals = {f: to_tensor(d[f], device) for f in TrackCarry._fields if f != "m"}
     return TrackCarry(m=map_state_from_numpy(d["m"], device), **vals)
 
 
@@ -80,21 +82,21 @@ def vocabulary_from_numpy(d, device) -> Vocabulary:
     dict: tensors for ``node_desc`` and ``word_weight``, plain integers
     for the rest)."""
     d = _as_dict(d)
-    return Vocabulary(node_desc=_to_tensor(d["node_desc"], device),
-                      word_weight=_to_tensor(d["word_weight"], device),
+    return Vocabulary(node_desc=to_tensor(d["node_desc"], device),
+                      word_weight=to_tensor(d["word_weight"], device),
                       k=int(d["k"]), levels=int(d["levels"]),
                       levels_up=int(d["levels_up"]))
 
 
 def bow_database_from_numpy(d, device) -> BowDatabase:
     d = _as_dict(d)
-    return BowDatabase(**{f: _to_tensor(d[f], device)
+    return BowDatabase(**{f: to_tensor(d[f], device)
                           for f in BowDatabase._fields})
 
 
 def loop_state_from_numpy(d, device) -> LoopState:
     d = _as_dict(d)
-    vals = {f: _to_tensor(d[f], device) for f in LoopState._fields if f != "db"}
+    vals = {f: to_tensor(d[f], device) for f in LoopState._fields if f != "db"}
     return LoopState(db=bow_database_from_numpy(d["db"], device), **vals)
 
 
@@ -104,15 +106,15 @@ def frame_from_numpy(d, device) -> Frame:
     keypoints."""
     d = _as_dict(d)
     kps = _as_dict(d["kps"])
-    return Frame(kps=Keypoints(**{f: _to_tensor(kps[f], device)
+    return Frame(kps=Keypoints(**{f: to_tensor(kps[f], device)
                                   for f in Keypoints._fields}),
-                 **{f: _to_tensor(d[f], device)
+                 **{f: to_tensor(d[f], device)
                     for f in Frame._fields if f != "kps"})
 
 
 def dense_gba_state_from_numpy(d, device) -> DenseGBAState:
     d = _as_dict(d)
-    return DenseGBAState(**{f: _to_tensor(d[f], device)
+    return DenseGBAState(**{f: to_tensor(d[f], device)
                             for f in DenseGBAState._fields})
 
 

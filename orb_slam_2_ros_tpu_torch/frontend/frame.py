@@ -1,9 +1,9 @@
 """Frame: fixed-shape per-image measurements.
 
-Port of ``orb_slam_2_ros_tpu/frontend/frame.py`` for the RGB-D and stereo
-sensors: ORB keypoints plus undistorted coords, metric depth and the right
+Port of ``orb_slam_2_ros_tpu/frontend/frame.py`` for the three sensors:
+ORB keypoints plus undistorted coords, metric depth and the right
 coordinate (the pseudo one from depth for RGB-D, the matched one for
-stereo).
+stereo, none for mono).
 """
 
 from __future__ import annotations
@@ -34,6 +34,16 @@ class Frame(NamedTuple):
     @property
     def desc(self):
         return self.kps.desc
+
+
+def build_mono(gray: torch.Tensor, cfg: SlamConfig) -> Frame:
+    """Monocular frame (``Frame.cc:182-236``): extract + undistort; no
+    depth and no right coordinate (both -1)."""
+    kps = extractor.extract(gray, cfg.orb)
+    uv = camera.undistort_pixels(cfg.camera, kps.xy)
+    neg = torch.full((cfg.orb.max_kps,), -1.0, dtype=torch.float32,
+                     device=gray.device)
+    return Frame(kps=kps, uv=uv, u_right=neg, depth=neg.clone())
 
 
 def build_stereo(gray_l: torch.Tensor, gray_r: torch.Tensor,

@@ -9,9 +9,11 @@ accept gates, the rotation histogram and a scatter-min conflict resolution.
 ``search_reference_kf`` goes through the same kernel with its gates opened
 (infinite radius, octave band [-1, 99], no stereo coordinate), which gives
 the reference's ungated masked ``best_two`` without an (N, M) matrix.
-``search_for_triangulation`` gates by the epipolar line and
-``search_by_node`` by vocabulary-node equality, which the kernel's metadata
-cannot express; both work on the (N, M) Hamming matrix in PyTorch.
+``search_for_triangulation`` gates by the epipolar line,
+``search_by_node`` by vocabulary-node equality and
+``search_for_initialization`` by a level-0 window between two frames; the
+reference runs these outside its kernel too, and they work on the (N, M)
+Hamming matrix in PyTorch.
 """
 
 from __future__ import annotations
@@ -222,6 +224,42 @@ def search_by_projection_pose(mp_world: torch.Tensor, mp_desc: torch.Tensor,
     return resolve_conflicts(best_idx, best_d, accept, frame.uv.shape[0])
 
 
+def _best_two_keyed(D: torch.Tensor, mask: torch.Tensor):
+    """Per row the best and second-best masked distance, ties to the lowest
+    column by a composite key (an ``argmin`` on CUDA promises no tie
+    order). Returns (best_idx, best_d, second_d), (N,) int32."""
+    cols = torch.arange(D.shape[1], dtype=torch.int32, device=D.device)
+    key = torch.where(mask, D, torch.full_like(D, INF_DIST)) * (1 << 15) + cols
+    best = torch.min(key, dim=1).values
+    best_idx, best_d = best & ((1 << 15) - 1), best >> 15
+    key2 = key.scatter(1, best_idx.to(torch.int64)[:, None],
+                       INF_DIST * (1 << 15) + (1 << 15) - 1)
+    return best_idx, best_d, torch.min(key2, dim=1).values >> 15
+
+
+def search_for_initialization(f_ref: Frame, f_cur: Frame, cfg: SlamConfig,
+                              window: float = 100.0, nn_ratio: float = 0.9):
+    """Windowed level-0 matching for monocular initialization
+    (``SearchForInitialization``, ``ORBmatcher.cc:406-522``): per keypoint
+    of the reference frame, the best level-0 keypoint of the current frame
+    within ``window`` pixels in u and v, accepted under TH_LOW, the nn
+    ratio and the rotation histogram. Returns (cur_to_ref (max_kps,)
+    int32, dist)."""
+    dx = torch.abs(f_ref.uv[:, None, 0] - f_cur.uv[None, :, 0])
+    dy = torch.abs(f_ref.uv[:, None, 1] - f_cur.uv[None, :, 1])
+    lvl0 = (f_ref.kps.octave[:, None] == 0) & (f_cur.kps.octave[None, :] == 0)
+    mask = ((dx <= window) & (dy <= window) & lvl0
+            & f_ref.valid[:, None] & f_cur.valid[None, :])
+    best_idx, best_d, second_d = _best_two_keyed(
+        hamming_matrix(f_ref.desc, f_cur.desc), mask)
+    accept = ((best_d <= cfg.matcher.th_low)
+              & (best_d.to(torch.float32)
+                 < nn_ratio * second_d.to(torch.float32)))
+    rot = _degrees(f_ref.kps.angle - f_cur.kps.angle[best_idx.to(torch.int64)])
+    accept = rotation_consistency(rot, accept)
+    return resolve_conflicts(best_idx, best_d, accept, f_cur.uv.shape[0])
+
+
 def search_by_node(desc_q, node_q, valid_q, angle_q, desc_t, node_t, valid_t,
                    angle_t, cfg: SlamConfig, nn_ratio: float = None,
                    check_rotation: bool = True):
@@ -234,16 +272,8 @@ def search_by_node(desc_q, node_q, valid_q, angle_q, desc_t, node_t, valid_t,
     nn = m.nn_ratio_bow if nn_ratio is None else nn_ratio
     mask = ((node_q[:, None] == node_t[None, :]) & (node_q[:, None] >= 0)
             & valid_q[:, None] & valid_t[None, :])
-    D = hamming_matrix(desc_q, desc_t)
-    # ties to the lowest column by a composite key, as in
-    # ``search_for_triangulation``
-    cols = torch.arange(D.shape[1], dtype=torch.int32, device=D.device)
-    key = torch.where(mask, D, torch.full_like(D, INF_DIST)) * (1 << 15) + cols
-    best = torch.min(key, dim=1).values
-    best_idx, best_d = best & ((1 << 15) - 1), best >> 15
-    key2 = key.scatter(1, best_idx.to(torch.int64)[:, None],
-                       INF_DIST * (1 << 15) + (1 << 15) - 1)
-    second_d = torch.min(key2, dim=1).values >> 15
+    best_idx, best_d, second_d = _best_two_keyed(
+        hamming_matrix(desc_q, desc_t), mask)
     accept = ((best_d <= m.th_low)
               & (best_d.to(torch.float32) < nn * second_d.to(torch.float32))
               & valid_q)

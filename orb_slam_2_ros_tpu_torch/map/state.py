@@ -1,7 +1,8 @@
 """MapState: the map as a NamedTuple of fixed-shape tensors.
 
-Port of ``orb_slam_2_ros_tpu/map/state.py`` without ``insert_keyframe`` and
-``spawn_points`` (the tracker commits through ``commit_keyframe``):
+Port of ``orb_slam_2_ros_tpu/map/state.py`` without ``spawn_points`` (the
+tracker commits through ``commit_keyframe``; the monocular initializer
+appends its two keyframes with ``insert_keyframe``):
 keyframes are rows of pooled tensors (pose, features and the kp -> map
 point observation table ``kf_mp``), map points are rows of point pools.
 Descriptors are int32 words with the reference's uint32 bits. What the
@@ -153,6 +154,47 @@ def bump_visibility(state: MapState, visible_mask: torch.Tensor,
     fnd = pad_row(state.mp_found).index_add(
         0, tgt, torch.ones_like(tgt, dtype=torch.int32))[:M]
     return state._replace(mp_visible=vis, mp_found=fnd)
+
+
+def insert_keyframe(state: MapState, frame: Frame, q, t, frame_id,
+                    kp_to_mp: torch.Tensor):
+    """Append the frame as keyframe row ``n_kfs`` with its current map-point
+    associations (``Tracking::CreateNewKeyFrame``, ``Tracking.cc:1204-1219``)
+    and record them in the points' observation rings. Spawns no point.
+    Returns (state, kf_id) with kf_id the 0-d row tensor."""
+    k = state.n_kfs
+    P, M = state.P, state.M
+    dev = state.kf_q.device
+    i64 = torch.int64
+    kp_mp = torch.where(frame.kps.valid, kp_to_mp, torch.full_like(kp_to_mp, -1))
+    fid = torch.as_tensor(frame_id, dtype=torch.int32, device=dev)
+    obs_mask = kp_mp >= 0
+    mp_ids = torch.where(obs_mask, kp_mp.to(i64),
+                         torch.full_like(kp_mp, M, dtype=i64))
+    slot = (state.mp_obs_cnt[torch.clamp(kp_mp, min=0).to(i64)]
+            % NOBS_DESC).to(i64)
+    flat_idx = k * P + torch.arange(P, dtype=torch.int32, device=dev)
+    flat_tbl = set_rows(pad_row(state.mp_obs_tbl).reshape(-1),
+                        mp_ids * NOBS_DESC + slot, flat_idx)
+    state = state._replace(
+        kf_q=set_row(state.kf_q, k, q),
+        kf_t=set_row(state.kf_t, k, t),
+        kf_valid=set_row(state.kf_valid, k, torch.ones_like(state.kf_valid[0])),
+        kf_frame_id=set_row(state.kf_frame_id, k, fid),
+        kf_uv=set_row(state.kf_uv, k, frame.uv),
+        kf_ur=set_row(state.kf_ur, k, frame.u_right),
+        kf_depth=set_row(state.kf_depth, k, frame.depth),
+        kf_octave=set_row(state.kf_octave, k, frame.kps.octave),
+        kf_angle=set_row(state.kf_angle, k, frame.kps.angle),
+        kf_desc=set_row(state.kf_desc, k, frame.kps.desc),
+        kf_kp_valid=set_row(state.kf_kp_valid, k, frame.kps.valid),
+        kf_mp=set_row(state.kf_mp, k, kp_mp),
+        mp_obs_tbl=flat_tbl.reshape(M + 1, NOBS_DESC)[:M],
+        mp_obs_cnt=pad_row(state.mp_obs_cnt).index_add(
+            0, mp_ids, obs_mask.to(torch.int32))[:M],
+        n_kfs=k + 1,
+    )
+    return state, k
 
 
 def commit_keyframe(state: MapState, frame: Frame, q, t, frame_id,

@@ -13,6 +13,10 @@ Neither synchronises with the host.
 ``min_subspace`` replaces the reference's TPU float32 workaround for EPnP's
 null space (seed from ``eigh``, polish by block inverse iteration, order by
 Rayleigh-Ritz): one float64 ``eigh`` resolves the trailing cluster.
+``null_vector`` does the same for the two-view initializer's DLT systems
+(9 columns): the reference seeds from an SVD and polishes by inverse
+iteration; one float64 ``eigh`` of the Gram matrix gives the same
+direction up to sign. ``svd3`` is the initializer's float64 3x3 SVD.
 """
 
 from __future__ import annotations
@@ -76,3 +80,29 @@ def min_subspace(G: torch.Tensor, k: int) -> torch.Tensor:
     iteration; the span is the same."""
     _, V = torch.linalg.eigh(G.to(torch.float64))
     return V[..., :k].to(G.dtype)
+
+
+def _finite_or_identity(G: torch.Tensor) -> torch.Tensor:
+    """G where every entry of a batch member is finite, the identity where
+    one is not: ``eigh`` and ``svd`` raise on a non-finite member on the
+    CPU and may not return on the card, and a degenerate hypothesis must
+    lose, not stop the batch. No host read."""
+    ok = torch.isfinite(G).all(dim=-1).all(dim=-1)
+    eye = torch.eye(G.shape[-1], dtype=G.dtype, device=G.device)
+    return torch.where(ok[..., None, None], G, eye.expand_as(G))
+
+
+def null_vector(A: torch.Tensor) -> torch.Tensor:
+    """Most-null right-singular vector of A (..., rows, d): the eigenvector
+    of the smallest eigenvalue of A^T A, from one float64 ``eigh``, cast to
+    A's dtype. Unit norm; its sign is arbitrary, as the reference's is."""
+    A64 = A.to(torch.float64)
+    _, V = torch.linalg.eigh(_finite_or_identity(A64.mT @ A64))
+    return V[..., :, 0].to(A.dtype)
+
+
+def svd3(M: torch.Tensor):
+    """Batched SVD of (..., 3, 3) in float64, cast back: (U, S, Vh) with
+    S descending. A non-finite member is decomposed as the identity."""
+    U, S, Vh = torch.linalg.svd(_finite_or_identity(M.to(torch.float64)))
+    return U.to(M.dtype), S.to(M.dtype), Vh.to(M.dtype)

@@ -1,8 +1,10 @@
 """Local mapping: triangulation, fusion, windowed bundle adjustment, culling.
 
 Port of ``orb_slam_2_ros_tpu/pipeline/local_mapping.py`` (the
-``LocalMapping`` thread, ``LocalMapping.cc``) for the RGB-D and stereo
-sensors (the step is the same for both) on one device. The host runs one mapping step after each tracking chunk that
+``LocalMapping`` thread, ``LocalMapping.cc``) for the three sensors on one
+device. Mono differs in three places, as in the reference: twice the
+triangulation neighbours, a baseline gate relative to the median scene
+depth, and a cull threshold of 2 observations. The host runs one mapping step after each tracking chunk that
 inserted a keyframe. The step:
 
 1. new-landmark triangulation against covisible keyframes
@@ -36,6 +38,7 @@ from orb_slam_2_ros_tpu_torch.geometry import triangulate as tri
 from orb_slam_2_ros_tpu_torch.map import state as map_state
 from orb_slam_2_ros_tpu_torch.map.state import (pad_row, row, set_row,
                                                 set_rows)
+from orb_slam_2_ros_tpu_torch.pipeline.mono_init import median_or_one
 from orb_slam_2_ros_tpu_torch.solvers import ba
 
 _BIG = 0x7FFFFFFF
@@ -72,16 +75,28 @@ def create_new_map_points(m: map_state.MapState, cfg: SlamConfig,
     dev = m.kf_q.device
     i32, i64 = torch.int32, torch.int64
     K_int = camera.intrinsics(cfg.camera, dev)
-    R = min(cfg.map.tri_neighbors, m.K)
+    R = cfg.map.tri_neighbors
+    if cfg.sensor == SENSOR_MONOCULAR:
+        R *= 2                      # nn=20 for mono (LocalMapping.cc:247)
+    R = min(R, m.K)
     P, M = m.P, m.M
     k = torch.clamp(m.n_kfs - 1, min=0)
     if covis is None:
         covis = map_state.covisibility(m)
     w_top, idx_top = _best_covisible(covis, k, R)
 
-    # (the median scene depth of the new keyframe gates the baseline for
-    # the monocular sensor only; it comes with that sensor)
     q_k, t_k = row(m.kf_q, k), row(m.kf_t, k)
+    mono = cfg.sensor == SENSOR_MONOCULAR
+    if mono:
+        # median scene depth of the new keyframe for the baseline gate
+        # (ComputeSceneMedianDepth, KeyFrame.cc:767-817). As in the
+        # reference the array is NaN wherever a keypoint has no point, so
+        # the median is NaN and the gate reads baseline / 1.0 whenever one
+        # keypoint of the keyframe is unmatched (pipeline/mono_init.py)
+        mp_k = row(m.kf_mp, k)
+        z_k = se3.apply(q_k, t_k, m.mp_pos[torch.clamp(mp_k, min=0).to(i64)])
+        med_depth = median_or_one(torch.where(
+            mp_k >= 0, z_k[:, 2], torch.full_like(z_k[:, 2], float("nan"))))
     uv_k_all, oct_k_all = row(m.kf_uv, k), row(m.kf_octave, k)
     desc_k = row(m.kf_desc, k)
     valid_k = row(m.kf_valid, k)
@@ -102,7 +117,11 @@ def create_new_map_points(m: map_state.MapState, cfg: SlamConfig,
         centre."""
         q_n, t_n = row(m.kf_q, n), row(m.kf_t, n)
         cn = se3.camera_center(q_n, t_n)
-        base_ok = torch.linalg.norm(ck - cn) > cfg.camera.bf / cfg.camera.fx
+        baseline = torch.linalg.norm(ck - cn)
+        if mono:
+            base_ok = baseline / torch.clamp(med_depth, min=1e-6) > 0.01
+        else:
+            base_ok = baseline > cfg.camera.bf / cfg.camera.fx
         neigh_ok = ((w >= cfg.map.covis_th) & (n != k) & row(m.kf_valid, n)
                     & valid_k & base_ok)
 
@@ -386,8 +405,6 @@ class LocalMapper:
     """
 
     def __init__(self, cfg: SlamConfig, window: int = 10):
-        if cfg.sensor == SENSOR_MONOCULAR:
-            raise NotImplementedError("the monocular sensor is not ported yet")
         self.cfg = cfg
         self.window = window
         # post-step keyframe count of the previous run; -1 = never ran,
@@ -517,7 +534,8 @@ def _mapping_body(m: map_state.MapState, last_mp: torch.Tensor,
         mp_pos=pos)
 
     # map-point culling: old points with too few surviving observations
-    # (stereo/RGB-D keeps a point at >= 3, LocalMapping.cc:209)
+    # (mono keeps a point at >= 2 observations, stereo/RGB-D at >= 3,
+    # LocalMapping.cc:209)
     cnt = map_state.observation_count(m)
     age = n - m.mp_first_kf     # in keyframes
     # found-ratio clause (GetFoundRatio() < 0.25f, LocalMapping.cc:221):
@@ -529,7 +547,8 @@ def _mapping_body(m: map_state.MapState, last_mp: torch.Tensor,
     ratio = (m.mp_found.to(torch.float32)
              / torch.clamp(m.mp_visible, min=1).to(torch.float32))
     weak = (age <= 3) & (m.mp_visible >= 8) & (ratio < 0.25)
-    cull = m.mp_valid & (((age >= 3) & (cnt < cfg.map.min_obs_cull)) | weak)
+    cull_th = 2 if cfg.sensor == SENSOR_MONOCULAR else cfg.map.min_obs_cull
+    cull = m.mp_valid & (((age >= 3) & (cnt < cull_th)) | weak)
     kf_mp = torch.where(
         (m.kf_mp >= 0) & cull[torch.clamp(m.kf_mp, min=0).to(i64)],
         torch.full_like(m.kf_mp, -1), m.kf_mp)

@@ -613,6 +613,14 @@ class LoopCloser:
         self.gba: Optional[ba.DenseGBAState] = None
         self._gba_iters_done = 0
 
+    def clear_index(self):
+        """Forget the database, the loop edges and the queued verdicts, so
+        that the next dispatch re-ingests the map from its first row (after
+        a session merge); a GBA in flight goes on."""
+        self.state = empty_state(self.cfg, self.device)
+        self._n_ingested = 0
+        self._pending_verdict = []
+
     # ------------------------------------------------------------- host API
 
     def apply_kf_compaction(self, remap_np):

@@ -1,12 +1,15 @@
 """System facade: tracking, local mapping and loop closing behind one
 entry point.
 
-Port of the part of ``orb_slam_2_ros_tpu/pipeline/slam.py`` (``System.cc``)
-that the RGB-D and stereo paths run: construction wires the tracker, the
-local mapper, the loop closer and the relocalizer; ``track_rgbd`` /
-``track_chunk`` replace ``TrackRGBD`` and ``TrackStereo``
-(``System.cc:196``), the stereo right images riding where RGB-D's depth
-maps do. Per tracker chunk the frames are tracked, one mapping step runs if
+Port of ``orb_slam_2_ros_tpu/pipeline/slam.py`` (``System.cc``) but for the
+Slice 7b savers: construction wires the tracker, the local mapper, the loop
+closer and the relocalizer; ``track_rgbd`` / ``track_chunk`` replace
+``TrackRGBD``, ``TrackStereo`` and ``TrackMonocular`` (``System.cc:196``),
+the stereo right images riding where RGB-D's depth maps do and mono
+passing none. A monocular system first feeds frames one by one to the
+two-view initializer (``pipeline/mono_init.py``); the frame that
+initializes installs the two-keyframe map, and tracking goes on from the
+next frame. Per tracker chunk the frames are tracked, one mapping step runs if
 the chunk inserted a keyframe, the loop closer ingests the new keyframes and
 detects, an in-flight global BA advances by one chunk, and the detection
 verdict of the PREVIOUS chunk is consumed: a correction lands one chunk
@@ -20,9 +23,29 @@ Loop closing is on by default, as in the reference. Without a ``vocab`` the
 system trains one from the descriptors of its first chunk's frames
 (``_bootstrap_vocabulary``).
 
-Relocalization needs the BoW index, so it runs with loop closing on, as
-in the reference. Not ported yet, each raising ``NotImplementedError``: map
-loading and saving, the monocular sensor, localization-only mode.
+Relocalization needs the BoW index, so it runs with loop closing on, in
+localization-only mode, or on a loaded map, as in the reference.
+
+Localization-only mode (``cfg.localization_only``, or
+``activate_localization_mode``) skips mapping, loop closing, the auto-reset
+and the pool compaction; the tracker's keyframe freeze and its
+visual-odometry points follow ``cfg.localization_only``, as the
+reference's compiled tracker does. While the last frame tracks on fewer
+than 10 map inliers, each chunk ends with a relocalization attempt that
+re-anchors it on the map (``Tracking.cc:385-417``).
+
+``save_map`` / ``load_map`` keep the reference's npz layout (the map's
+fields, ``vocab__*``, ``loop__*``), so a map saved by either package loads
+in the other; ``merge_map`` aligns a saved session by place recognition
+and a Sim3 and appends it (``pipeline/map_merge.py``).
+
+A stereo system builds its relocalization frames with ``build_stereo``.
+The reference builds them as RGB-D with the right image as the depth map
+(``slam.py:512-518``), a fault of its own; this is a deliberate divergence
+(``tests/test_torch_stereo.py``).
+
+Not ported yet (Slice 7b), each raising ``NotImplementedError``: the
+trajectory savers, the debug image, and ``mesh=`` (Slice 8).
 """
 
 from __future__ import annotations
@@ -32,17 +55,24 @@ from typing import List
 import numpy as np
 import torch
 
-from orb_slam_2_ros_tpu_torch.config import SENSOR_STEREO, SlamConfig
+from orb_slam_2_ros_tpu_torch import convert
+from orb_slam_2_ros_tpu_torch.config import (SENSOR_MONOCULAR, SENSOR_STEREO,
+                                             SlamConfig)
 from orb_slam_2_ros_tpu_torch.frontend import frame as frame_mod
 from orb_slam_2_ros_tpu_torch.map import state as map_state
+from orb_slam_2_ros_tpu_torch.pipeline import map_merge
 from orb_slam_2_ros_tpu_torch.pipeline.local_mapping import LocalMapper
-from orb_slam_2_ros_tpu_torch.pipeline.loop_closing import LoopCloser
+from orb_slam_2_ros_tpu_torch.pipeline.loop_closing import (LoopCloser,
+                                                            LoopState)
 from orb_slam_2_ros_tpu_torch.pipeline.metrics import StageTimers
+from orb_slam_2_ros_tpu_torch.pipeline.mono_init import MonoInitializer
 from orb_slam_2_ros_tpu_torch.pipeline.relocalization import Relocalizer
-from orb_slam_2_ros_tpu_torch.place import vocabulary
+from orb_slam_2_ros_tpu_torch.place import database, vocabulary
 from orb_slam_2_ros_tpu_torch.pipeline.tracking import (
-    LOST, NOT_INITIALIZED, FrameRecord, Tracker, _quat_mul_np,
+    LOST, NOT_INITIALIZED, OK, FrameRecord, Tracker, _quat_mul_np,
     _quat_rotate_np)
+
+
 
 
 def default_vocabulary(cfg: SlamConfig, device, warn: bool = True):
@@ -76,9 +106,11 @@ class System:
 
     def __init__(self, cfg: SlamConfig, enable_local_ba: bool = True,
                  ba_window: int = 10, load_map=None,
-                 enable_loop_closing: bool = True, vocab=None, device=None):
-        if load_map is not None:
-            raise NotImplementedError("map loading is not ported yet")
+                 enable_loop_closing: bool = True, vocab=None, device=None,
+                 mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "the sharded backend (mesh=) is not ported yet")
         self.cfg = cfg
         self.timers = StageTimers()
         # the tracker rejects the sensors and modes that are not ported and
@@ -88,7 +120,9 @@ class System:
         self.mapper = (LocalMapper(cfg, window=ba_window)
                        if enable_local_ba else None)
         self.n_resets = 0
+        self.n_merges = 0
         self.n_kf_compactions = 0
+        self.localization_only = cfg.localization_only
         self._culled_dev = []      # device scalars, summed when asked for
         self._frame_counter = 0
         self._last_frame_inputs = None
@@ -103,10 +137,27 @@ class System:
         self.relocalizer = None
         self.vocab = vocab
         # no vocabulary given: the retrieval stack is built at the first
-        # tracked chunk, around a tree trained on that chunk's descriptors
-        self._vocab_pending = enable_loop_closing and vocab is None
-        if enable_loop_closing and vocab is not None:
-            self._build_retrieval_stack()
+        # tracked chunk, around a tree trained on that chunk's descriptors;
+        # a loaded map brings its own (the random-code tree stands in only
+        # for a file without one)
+        self._vocab_pending = False
+        if enable_loop_closing or cfg.localization_only or load_map:
+            if vocab is None and not load_map:
+                self._vocab_pending = True
+            else:
+                if vocab is None and "vocab__node_desc" not in np.load(
+                        load_map).files:
+                    self.vocab = default_vocabulary(cfg, self.device)
+                if self.vocab is not None:
+                    self._build_retrieval_stack()
+        # monocular bootstrap (MonocularInitialization, Tracking.cc:633-816)
+        self.mono_init = None
+        self._mono_initialized = cfg.sensor != SENSOR_MONOCULAR
+        if cfg.sensor == SENSOR_MONOCULAR:
+            self.mono_init = MonoInitializer(cfg, device=self.device)
+        if load_map:
+            self.load_map(load_map)
+            self._mono_initialized = True
 
     def _build_retrieval_stack(self):
         """The relocalizer and the loop closer around ``self.vocab``, the
@@ -140,9 +191,12 @@ class System:
                    timestamp: float) -> FrameRecord:
         return self.track_chunk(gray[None], depth[None], [timestamp])[0]
 
-    def track_chunk(self, grays, depths, timestamps=None) -> List[FrameRecord]:
+    def track_chunk(self, grays, depths=None,
+                    timestamps=None) -> List[FrameRecord]:
         """Track a batch of frames, grays/depths (N, H, W) float images:
-        depth maps in metres (RGB-D) or the right images (stereo). Per
+        depth maps in metres (RGB-D), the right images (stereo) or None
+        (mono). A monocular system not yet initialized first feeds the
+        frames to the two-view initializer, one at a time. Then per
         tracker chunk: track, one mapping step, loop closing, then
         relocalization of the chunk's LOST frames. The mapping step runs
         only if the chunk inserted a keyframe; that, and how many keyframes
@@ -150,26 +204,50 @@ class System:
         the chunk's own records carry (``ref_kf`` of the last frame), so
         neither gate reads anything more from the device."""
         grays = np.asarray(grays, np.float32)
-        depths = np.asarray(depths, np.float32)
+        if depths is not None:
+            depths = np.asarray(depths, np.float32)
         if self._vocab_pending:
             self._bootstrap_vocabulary(grays)
         if timestamps is None:
             timestamps = [self._frame_counter + i / 30.0
                           for i in range(len(grays))]
+        timestamps = list(timestamps)
+        init_recs: List[FrameRecord] = []
+        if not self._mono_initialized:
+            consumed = 0
+            for i in range(len(grays)):
+                out = self.mono_init.process(grays[i], self._frame_counter + i)
+                consumed = i + 1
+                if out is not None:
+                    self._adopt_mono_init(*out, consumed, init_recs,
+                                          timestamps)
+                    break
+                init_recs.append(self._placeholder_record(
+                    timestamps[i], NOT_INITIALIZED, offset=len(init_recs)))
+            self.tracker.records.extend(init_recs)
+            self._frame_counter += consumed
+            if not self._mono_initialized or consumed == len(grays):
+                return init_recs
+            grays = grays[consumed:]
+            timestamps = timestamps[consumed:]
         recs: List[FrameRecord] = []
-        C = self.tracker.CHUNK
+        C = self.tracker.chunk
         K = self.cfg.map.max_kfs
         lc = self.loop_closer
+        loop_on = (lc is not None and self.loop_closing_enabled
+                   and not self.localization_only)
+        mapping_on = self.mapper is not None and not self.localization_only
         for w0 in range(0, len(grays), C):
             w1 = min(w0 + C, len(grays))
+            d = None if depths is None else depths[w0:w1]
             carry_before = self.tracker.carry
             with self.timers.time("tracking"):
-                chunk = self.tracker.process_chunk(
-                    grays[w0:w1], depths[w0:w1], timestamps[w0:w1])
+                chunk = self.tracker.process_chunk(grays[w0:w1], d,
+                                                   timestamps[w0:w1])
             n_kfs = chunk[-1].ref_kf + 1
             # point ids stay frozen while a global BA holds a snapshot
             gba_running = lc is not None and lc.gba_running
-            if self.mapper is not None:
+            if mapping_on:
                 with self.timers.time("local_mapping"):
                     carry = self.tracker.carry
                     m2, n_culled, last_mp2 = self.mapper.run(
@@ -179,7 +257,7 @@ class System:
                     self.tracker.carry = carry._replace(m=m2,
                                                         last_mp=last_mp2)
                     self._culled_dev.append(n_culled)
-            if lc is not None:
+            if loop_on:
                 with self.timers.time("loop_closing"):
                     # detection only: its verdict is consumed one chunk on
                     lc.dispatch(self.tracker.carry.m, n_kfs)
@@ -204,36 +282,76 @@ class System:
                 with self.timers.time("relocalization"):
                     for f in np.flatnonzero(states == LOST):
                         ok, q, t, kp_mp, frame = self._attempt_reloc(
-                            *self._to_float_frame(grays[w0 + f],
-                                                  depths[w0 + f]))
+                            *self._to_float_frame(
+                                grays[w0 + f],
+                                None if d is None else d[f]))
                         if ok:
                             chunk = self._replay_chunk(
-                                carry_before, grays[w0:w1], depths[w0:w1],
+                                carry_before, grays[w0:w1], d,
                                 timestamps[w0:w1], int(f), q, t, kp_mp,
                                 frame)
                             break
                 # lost with a barely started map: start over
                 # (Tracking.cc:508-516, min_num_kf_in_map)
-                if (not ok and self.tracker.n_kfs
+                if (not ok and not self.localization_only
+                        and self.tracker.n_kfs
                         <= self.cfg.tracking.min_num_kf_in_map):
                     self.reset()
             recs.extend(chunk)
             # keyframe-pool recycling, only while no GBA runs (its
             # snapshot indexes the rows as they are)
-            if (self.mapper is not None
-                    and not (lc is not None and lc.gba_running)
+            if (mapping_on and not (lc is not None and lc.gba_running)
                     and n_kfs >= int(self.KF_COMPACT_WATERMARK * K)):
                 self.compact_keyframe_pool()
         self._frame_counter += len(grays)
-        self._last_frame_inputs = (grays[-1], depths[-1])
-        return recs
+        self._last_frame_inputs = (grays[-1],
+                                   None if depths is None else depths[-1])
+        # localization-VO re-anchoring: tracking survives on temporal points
+        # while the map is out of sight (mbVO, Tracking.cc:385-417), so try
+        # to relocalize on the map again (LOST frames were handled above)
+        if (recs and self.localization_only and self.relocalizer is not None
+                and recs[-1].state == OK and recs[-1].n_map_inliers < 10):
+            with self.timers.time("relocalization"):
+                self.relocalize()
+        return init_recs + recs
+
+    def _placeholder_record(self, ts, state, offset=0) -> FrameRecord:
+        """The record of a frame that the monocular initializer consumed."""
+        return FrameRecord(
+            frame_id=len(self.tracker.records) + offset, timestamp=float(ts),
+            state=state, n_matches_frame=0, n_inliers=0, is_keyframe=False,
+            R_wc=np.eye(3, dtype=np.float32),
+            c_w=np.zeros(3, dtype=np.float32))
+
+    def _adopt_mono_init(self, m, q1, t1, kp_mp, cur, consumed, init_recs,
+                         timestamps):
+        """Install the two-keyframe monocular map and bootstrap the tracker
+        from keyframe 1's pose (the tail of CreateInitialMapMonocular,
+        ``Tracking.cc:802-816``). As in the reference, the carry's frame
+        count restarts at the number of frames this call consumed, the
+        keyframe decision's reference count is keyframe 1's points, and
+        the initializing frame's record is OK at the identity pose."""
+        tr = self.tracker
+        tr.carry = tr._fresh_carry(m, initialized=True)
+        tr.force_pose(q1, t1, kp_mp, cur.kps.octave, cur.kps.angle)
+        tr.carry = tr.carry._replace(
+            frame_id=torch.full_like(tr.carry.frame_id, consumed),
+            ref_tracked=torch.sum(kp_mp >= 0, dtype=torch.int32))
+        self._mono_initialized = True
+        for i in range(len(init_recs), consumed):
+            init_recs.append(self._placeholder_record(
+                timestamps[i], NOT_INITIALIZED, offset=len(init_recs)))
+        init_recs[-1] = self._placeholder_record(
+            timestamps[consumed - 1], OK, offset=len(init_recs) - 1)
 
     # ------------------------------------------------------- relocalization
 
     def _to_float_frame(self, gray, aux):
-        """One frame's float images (host arrays) as tensors on the
-        device."""
+        """One frame's float images (host arrays; ``aux`` None for mono)
+        as tensors on the device."""
         def dev(a):
+            if a is None:
+                return None
             return torch.from_numpy(np.asarray(a, np.float32)).to(self.device)
         return dev(gray), dev(aux)
 
@@ -247,7 +365,11 @@ class System:
         m = self.tracker.carry.m
         lc = self.loop_closer
         lc.ingest_pending(m, self.tracker.n_kfs)
-        if self.cfg.sensor == SENSOR_STEREO:
+        if self.cfg.sensor == SENSOR_MONOCULAR:
+            frame = frame_mod.build_mono(gray, self.cfg)
+        elif self.cfg.sensor == SENSOR_STEREO:
+            # a deliberate divergence: the reference builds an RGB-D frame
+            # with the right image as depth (its slam.py:512-518)
             frame = frame_mod.build_stereo(gray, aux, self.cfg)
         else:
             frame = frame_mod.build_rgbd(gray, aux, self.cfg)
@@ -357,6 +479,9 @@ class System:
             self.mapper.rearm()
         if self.loop_closer is not None:
             self.loop_closer.reset()
+        if self.mono_init is not None:
+            self.mono_init.reset()
+            self._mono_initialized = False
         self.n_resets += 1
 
     def flush(self) -> List[FrameRecord]:
@@ -365,7 +490,8 @@ class System:
         the end of a sequence, before reading trajectories or loop
         counters: they then reflect the COMPLETED refinement."""
         lc = self.loop_closer
-        if lc is not None:
+        if (lc is not None and self.loop_closing_enabled
+                and not self.localization_only):
             with self.timers.time("loop_closing"):
                 m2, closed = lc.finish_pending(self.tracker.carry.m)
                 if closed:
@@ -383,11 +509,12 @@ class System:
 
     @property
     def last_big_change_idx(self) -> int:
-        """Counter of global map rewrites (loop corrections and resets).
-        Consumers compare it against a remembered value to decide when to
-        re-read the whole map (``Map::GetLastBigChangeIdx``)."""
+        """Counter of global map rewrites (loop corrections, resets and
+        session merges). Consumers compare it against a remembered value
+        to decide when to re-read the whole map
+        (``Map::GetLastBigChangeIdx``)."""
         loops = self.loop_closer.n_loops_closed if self.loop_closer else 0
-        return loops + self.n_resets
+        return loops + self.n_resets + self.n_merges
 
     def metrics(self) -> dict:
         """Run summary: counters + per-stage host timing (reads the
@@ -412,3 +539,113 @@ class System:
         if not self._culled_dev:
             return 0
         return int(torch.stack(self._culled_dev).sum())
+
+    # ----------------------------------------------------------------- mode
+
+    def activate_localization_mode(self):
+        """Stop mapping and loop closing (``System.cc:578-605``). As in the
+        reference, the tracker's own freeze (no keyframe, the VO points)
+        follows ``cfg.localization_only``."""
+        self.localization_only = True
+
+    def deactivate_localization_mode(self):
+        self.localization_only = False
+
+    # ------------------------------------------------------------- map I/O
+
+    def save_map(self, path: str) -> bool:
+        """Persist the map, the vocabulary and the loop closer's BoW index
+        and loop edges in the reference's npz layout: the ``MapState``
+        fields by name (descriptors as uint32), ``vocab__node_desc``,
+        ``vocab__word_weight``, ``vocab__klu``, and ``loop__*`` (the
+        reference archives the Map and the KeyFrameDatabase together and
+        rebinds the vocabulary on load, ``System.cc:610-691``)."""
+        arrays = convert.to_numpy(self.tracker.map)
+        v = self.vocab
+        if v is not None:
+            arrays["vocab__node_desc"] = convert.to_numpy(v)["node_desc"]
+            arrays["vocab__word_weight"] = v.word_weight.cpu().numpy()
+            arrays["vocab__klu"] = np.array([v.k, v.levels, v.levels_up],
+                                            np.int32)
+        lc = self.loop_closer
+        if lc is not None:
+            st = convert.to_numpy(lc.state)
+            arrays.update(("loop__db_" + f, a)
+                          for f, a in st.pop("db").items())
+            arrays.update(("loop__" + f, a) for f, a in st.items())
+            # the port keeps this count on the host
+            arrays["loop__n_ingested"] = np.array(lc._n_ingested, np.int32)
+        np.savez_compressed(path, **arrays)
+        return True
+
+    def load_map(self, path: str) -> bool:
+        """Load a saved map (either package's), rebind its vocabulary and
+        restore the BoW index and loop edges, so that relocalization and
+        loop closing work against it (``System::LoadMap``,
+        ``System.cc:647-691``). The tracker starts from the origin on the
+        loaded map (``Tracker.attach_map``)."""
+        data = np.load(path)
+        self.tracker.attach_map(self._map_from(data))
+        if self.mapper is not None:
+            self.mapper.rearm()
+        if "vocab__node_desc" in data.files:
+            k, levels, lu = (int(x) for x in data["vocab__klu"])
+            self.vocab = convert.vocabulary_from_numpy(dict(
+                node_desc=data["vocab__node_desc"],
+                word_weight=data["vocab__word_weight"], k=k, levels=levels,
+                levels_up=lu), self.device)
+            self._build_retrieval_stack()
+            self._vocab_pending = False
+        lc = self.loop_closer
+        if lc is not None and "loop__n_ingested" in data.files:
+            st = {f: data["loop__" + f] for f in LoopState._fields
+                  if f != "db"}
+            st["db"] = {f: data["loop__db_" + f]
+                        for f in database.BowDatabase._fields}
+            lc.state = convert.loop_state_from_numpy(st, self.device)
+            lc._n_ingested = int(data["loop__n_ingested"])
+        return True
+
+    def merge_map(self, path: str, fix_scale: bool = None) -> bool:
+        """Merge a saved session's map into the live one
+        (``pipeline/map_merge.py``): align by place recognition and a Sim3,
+        concatenate, and let the loop closer re-index the merged map from
+        its first row. Returns success."""
+        m2 = self._map_from(np.load(path))
+        if self.vocab is None:
+            self.vocab = default_vocabulary(self.cfg, self.device)
+        if fix_scale is None:
+            fix_scale = self.cfg.sensor != SENSOR_MONOCULAR
+        merged, _ = map_merge.merge_maps(
+            self.tracker.carry.m, m2, self.vocab, self.cfg,
+            fix_scale=fix_scale)
+        if merged is None:
+            return False
+        self.tracker.adopt_map(merged)
+        self.n_merges += 1
+        if self.loop_closer is not None:
+            self.loop_closer.clear_index()
+        return True
+
+    def _map_from(self, data) -> map_state.MapState:
+        """A MapState from a saved npz; a field the file lacks takes the
+        empty map's value, as in the reference."""
+        empty = map_state.empty(self.cfg, self.device)
+        return map_state.MapState(**{
+            f: (convert.to_tensor(data[f], self.device) if f in data.files
+                else getattr(empty, f))
+            for f in map_state.MapState._fields})
+
+    # ---------------------------------------------------- not ported (7b)
+
+    def save_trajectory_tum(self, path: str):
+        raise NotImplementedError("the trajectory savers come with Slice 7b")
+
+    def save_keyframe_trajectory_tum(self, path: str):
+        raise NotImplementedError("the trajectory savers come with Slice 7b")
+
+    def save_trajectory_kitti(self, path: str):
+        raise NotImplementedError("the trajectory savers come with Slice 7b")
+
+    def render_debug_image(self):
+        raise NotImplementedError("the debug image comes with Slice 7b")

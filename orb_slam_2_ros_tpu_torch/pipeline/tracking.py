@@ -1,8 +1,7 @@
-"""Tracking front end: per-frame RGB-D or stereo pose estimation against
-the map.
+"""Tracking front end: per-frame pose estimation against the map.
 
-Port of ``orb_slam_2_ros_tpu/pipeline/tracking.py`` for the RGB-D and stereo
-sensors (``Tracking.cc``: TrackWithMotionModel -> TrackReferenceKeyFrame fallback ->
+Port of ``orb_slam_2_ros_tpu/pipeline/tracking.py`` for the three sensors
+(``Tracking.cc``: TrackWithMotionModel -> TrackReferenceKeyFrame fallback ->
 TrackLocalMap -> NeedNewKeyFrame -> CreateNewKeyFrame). The reference's
 ``lax.scan`` over a chunk becomes a Python loop over its frames. The
 stereo/RGB-D initialization, the reference-keyframe fallback, the widened
@@ -11,9 +10,20 @@ computed and ``torch.where`` selects, exactly as the reference selects, so
 nothing in the frame loop waits for the device. Per-frame outputs stay on
 the device until ``flush()``.
 
+The monocular sensor initializes at the ``System`` level
+(``pipeline/mono_init.py``); the tracker then starts from the two-keyframe
+map (``attach_map`` + ``force_pose``) and never initializes by itself.
+
+Localization-only mode (``cfg.localization_only``) freezes the map (no
+keyframe, no initialization) and tracks on temporal visual-odometry points
+as well: the previous frame's close depths back-projected under its final
+pose (``UpdateLastFrame``, ``Tracking.cc:893-968``), matched by one more
+projection search with its widened retry (two more kernel launches a
+frame), so that tracking survives leaving the mapped region
+(``Tracking.cc:349-418``).
+
 ``force_pose`` and ``pop_pending`` serve relocalization, which ``System``
-drives (``pipeline/relocalization.py``). Not ported: localization-only mode
-(its visual-odometry points) and the monocular sensor.
+drives (``pipeline/relocalization.py``); ``attach_map`` a loaded map.
 """
 
 from __future__ import annotations
@@ -28,7 +38,7 @@ from orb_slam_2_ros_tpu_torch.config import (SENSOR_MONOCULAR, SENSOR_RGBD,
                                              SENSOR_STEREO, SlamConfig)
 from orb_slam_2_ros_tpu_torch.frontend import frame as frame_mod
 from orb_slam_2_ros_tpu_torch.frontend import matcher
-from orb_slam_2_ros_tpu_torch.geometry import se3
+from orb_slam_2_ros_tpu_torch.geometry import camera, se3
 from orb_slam_2_ros_tpu_torch.map import state as map_state
 from orb_slam_2_ros_tpu_torch.solvers.pose_opt import pose_optimization
 
@@ -40,8 +50,7 @@ LOST = 3
 
 class TrackCarry(NamedTuple):
     """Device-resident tracking context carried across frames. The vo_*
-    fields and last_vo keep the reference's layout; they stay inert until
-    localization-only mode is ported."""
+    fields and last_vo stay inert outside localization-only mode."""
 
     m: map_state.MapState
     initialized: torch.Tensor   # () bool
@@ -56,11 +65,13 @@ class TrackCarry(NamedTuple):
     since_kf: torch.Tensor      # () int32
     frame_id: torch.Tensor      # () int32
     since_reloc: torch.Tensor   # () int32 frames since the last relocalization
-    vo_pos: torch.Tensor        # (P, 3)
+    # localization-only VO: the previous frame's temporal points, indexed
+    # by its keypoint slots
+    vo_pos: torch.Tensor        # (P, 3) world positions
     vo_desc: torch.Tensor       # (P, 8) int32
     vo_oct: torch.Tensor        # (P,) int32
     vo_ok: torch.Tensor         # (P,) bool
-    last_vo: torch.Tensor       # (P,) bool
+    last_vo: torch.Tensor       # (P,) bool kp of the last frame matched a VO point
 
 
 @dataclasses.dataclass
@@ -106,9 +117,13 @@ def _quat_to_R(qw, qx, qy, qz):
 
 def _track_core(cfg: SlamConfig, m: map_state.MapState, frame, q_pred,
                 t_pred, q_last, t_last, last_mp, last_oct, last_angle,
-                since_reloc):
+                since_reloc, vo=None):
     """Two-stage matching + pose LM (TrackWithMotionModel + TrackLocalMap,
-    ``Tracking.cc:971-1093``)."""
+    ``Tracking.cc:971-1093``). In localization-only mode ``vo`` is
+    (vo_pos, vo_desc, vo_oct, vo_ok), the previous frame's temporal
+    points: unassociated keypoints are matched against them and they join
+    both pose LMs. Returns (q, t, kp_mp, n1, n2, n_map, n_close_tracked,
+    n_close_free, vis_mask, kp_is_vo)."""
     tc = cfg.tracking
     i64 = torch.int64
     th_close = cfg.camera.bf / cfg.camera.fx * cfg.camera.th_depth
@@ -140,10 +155,31 @@ def _track_core(cfg: SlamConfig, m: map_state.MapState, frame, q_pred,
     q_start = torch.where(use_ref, q_last, q_pred)
     t_start = torch.where(use_ref, t_last, t_pred)
 
+    def edges(kp_mp, kp_vo):
+        """Pose-LM inputs: map points, then VO points where no map point."""
+        pos = m.mp_pos[torch.clamp(kp_mp, min=0).to(i64)]
+        if vo is None:
+            return pos, kp_mp >= 0
+        pos = torch.where((kp_mp >= 0)[:, None], pos,
+                          vo[0][torch.clamp(kp_vo, min=0).to(i64)])
+        return pos, (kp_mp >= 0) | (kp_vo >= 0)
+
+    if vo is None:
+        kp_vo = neg
+    else:
+        # localization-VO: the previous frame's temporal points, indexed by
+        # its keypoint slots like last_angle (Tracking.cc:893-968)
+        vo_pos, vo_desc, vo_oct, vo_ok = vo
+        kp_to_vo, _ = matcher.search_by_projection_pose(
+            vo_pos, vo_desc, vo_oct, vo_ok, q_pred, t_pred, frame, cfg,
+            th=15.0, src_angle=last_angle, widen_below=tc.min_matches_motion)
+        kp_vo = torch.where(kp_mp1 >= 0, neg, kp_to_vo)
+    pos1, valid1 = edges(kp_mp1, kp_vo)
     q1, t1, inl1, n1 = pose_optimization(
-        q_start, t_start, m.mp_pos[torch.clamp(kp_mp1, min=0).to(i64)],
-        frame.uv, frame.u_right, frame.kps.octave, kp_mp1 >= 0, cfg)
+        q_start, t_start, pos1, frame.uv, frame.u_right, frame.kps.octave,
+        valid1, cfg)
     kp_mp1 = torch.where(inl1, kp_mp1, neg)
+    kp_vo = torch.where(inl1, kp_vo, neg)
 
     tv = matcher.frustum_check(q1, t1, m.mp_pos, m.mp_normal, m.mp_min_dist,
                                m.mp_max_dist, m.mp_valid, cfg)
@@ -178,15 +214,18 @@ def _track_core(cfg: SlamConfig, m: map_state.MapState, frame, q_pred,
     kp_to_mp2 = torch.where(kp_to_c >= 0,
                             cand[torch.clamp(kp_to_c, min=0).to(i64)], neg)
     kp_mp = torch.where(kp_mp1 >= 0, kp_mp1, kp_to_mp2)
+    # a local-map match supersedes a temporal VO match
+    kp_vo = torch.where(kp_mp >= 0, neg, kp_vo)
+    pos2, valid2 = edges(kp_mp, kp_vo)
     q2, t2, inl2, n2 = pose_optimization(
-        q1, t1, m.mp_pos[torch.clamp(kp_mp, min=0).to(i64)], frame.uv,
-        frame.u_right, frame.kps.octave, kp_mp >= 0, cfg)
+        q1, t1, pos2, frame.uv, frame.u_right, frame.kps.octave, valid2, cfg)
     n_map = torch.sum(inl2 & (kp_mp >= 0), dtype=torch.int32)
     kp_mp = torch.where(inl2, kp_mp, neg)
     close = frame.valid & (frame.depth > 0) & (frame.depth < th_close)
     n_close_tr = torch.sum(close & (kp_mp >= 0), dtype=torch.int32)
     n_close_free = torch.sum(close & (kp_mp < 0), dtype=torch.int32)
-    return q2, t2, kp_mp, n1, n2, n_map, n_close_tr, n_close_free, vis_mask
+    return (q2, t2, kp_mp, n1, n2, n_map, n_close_tr, n_close_free, vis_mask,
+            kp_vo >= 0)
 
 
 def _frame_step(cfg: SlamConfig, carry: TrackCarry, frame, q_init, t_init):
@@ -196,16 +235,22 @@ def _frame_step(cfg: SlamConfig, carry: TrackCarry, frame, q_init, t_init):
     m = carry.m
     f32 = torch.float32
 
+    vo = ((carry.vo_pos, carry.vo_desc, carry.vo_oct, carry.vo_ok)
+          if cfg.localization_only else None)
     q_pred, t_pred = se3.compose(carry.vel_q, carry.vel_t, carry.q, carry.t)
-    q2, t2, kp_mp, n1, n2, n_map, nct, ncf, vis_mask = _track_core(
+    (q2, t2, kp_mp, n1, n2, n_map, nct, ncf, vis_mask,
+     kp_is_vo) = _track_core(
         cfg, m, frame, q_pred, t_pred, carry.q, carry.t, carry.last_mp,
-        carry.last_oct, carry.last_angle, carry.since_reloc)
+        carry.last_oct, carry.last_angle, carry.since_reloc, vo)
     good = (n2 >= tc.min_inliers_local_map) & carry.initialized
     m = map_state.bump_visibility(m, vis_mask, kp_mp, carry.initialized)
 
-    # stereo/RGB-D initialization (predicated)
+    # stereo/RGB-D initialization (predicated); mono initializes at the
+    # System level (two-view reconstruction), and a frozen map never does
     n_depth = torch.sum(frame.valid & (frame.depth > 0), dtype=torch.int32)
     can_init = ~carry.initialized & (n_depth >= tc.min_init_stereo_kps)
+    if cfg.sensor == SENSOR_MONOCULAR or cfg.localization_only:
+        can_init = torch.zeros_like(can_init)
 
     # keyframe decision (NeedNewKeyFrame, Tracking.cc:1103)
     capacity_ok = (m.M - m.n_mps >= 1024) & (m.n_kfs < m.K)
@@ -213,6 +258,9 @@ def _frame_step(cfg: SlamConfig, carry: TrackCarry, frame, q_init, t_init):
     c1 = carry.since_kf >= tc.max_frames_between_kf
     c2 = (n2 < 0.75 * carry.ref_tracked.to(f32)) | need_close
     need_kf = good & capacity_ok & (n2 > 15) & (c1 | c2)
+    if cfg.localization_only:
+        # localization mode: the map is frozen (System.cc:578-605)
+        need_kf = torch.zeros_like(need_kf)
 
     # predicated commit (insert + spawn)
     commit = need_kf | (can_init & capacity_ok)
@@ -234,15 +282,30 @@ def _frame_step(cfg: SlamConfig, carry: TrackCarry, frame, q_init, t_init):
                                               carry.vel_t))
     initialized = carry.initialized | can_init
 
+    vo_c = {}
+    if cfg.localization_only and cfg.sensor != SENSOR_MONOCULAR:
+        # re-spawn the temporal points from THIS frame's close depths under
+        # its final pose, for the next frame (UpdateLastFrame,
+        # Tracking.cc:919-965)
+        th_close = cfg.camera.bf / cfg.camera.fx * cfg.camera.th_depth
+        xc = camera.backproject(cfg.camera, frame.uv, frame.depth)
+        vo_ok = (frame.valid & (frame.depth > 0) & (frame.depth < th_close)
+                 & track_ok)
+        vo_c = dict(
+            vo_pos=torch.where(track_ok, se3.apply(*se3.inverse(q_new, t_new),
+                                                   xc), carry.vo_pos),
+            vo_desc=torch.where(track_ok, frame.kps.desc, carry.vo_desc),
+            vo_oct=torch.where(track_ok, frame.kps.octave, carry.vo_oct),
+            vo_ok=torch.where(track_ok, vo_ok, carry.vo_ok))
+
     one = torch.ones((), dtype=torch.int32, device=n2.device)
     new_carry = carry._replace(
-        m=m, initialized=initialized, q=q_new, t=t_new,
+        **vo_c, m=m, initialized=initialized, q=q_new, t=t_new,
         vel_q=vel_q, vel_t=vel_t,
         last_mp=torch.where(track_ok, kp_mp_out, carry.last_mp),
         last_oct=torch.where(track_ok, frame.kps.octave, carry.last_oct),
         last_angle=torch.where(track_ok, frame.kps.angle, carry.last_angle),
-        last_vo=torch.where(track_ok, torch.zeros_like(carry.last_vo),
-                            carry.last_vo),
+        last_vo=torch.where(track_ok, kp_is_vo, carry.last_vo),
         ref_tracked=torch.where(can_init, n_spawned,
                                 torch.where(need_kf, n2, carry.ref_tracked)),
         since_kf=torch.where(commit, torch.zeros_like(carry.since_kf),
@@ -274,17 +337,20 @@ def _unit_quat(like):
 def build_frame(cfg: SlamConfig, gray_u8: torch.Tensor, aux_w: torch.Tensor):
     """Frame from wire-format inputs: u8 gray and, per sensor, the u8 right
     image (stereo, ``Frame.cc:62-118``) or integer millimetre depth
-    (RGB-D, ``:679-701``)."""
+    (RGB-D, ``:679-701``); mono ignores ``aux_w``."""
     gray = gray_u8.to(torch.float32)
     if cfg.sensor == SENSOR_STEREO:
         return frame_mod.build_stereo(gray, aux_w.to(torch.float32), cfg)
+    if cfg.sensor == SENSOR_MONOCULAR:
+        return frame_mod.build_mono(gray, cfg)
     depth = aux_w.to(torch.float32) * 1e-3
     return frame_mod.build_rgbd(gray, depth, cfg)
 
 
 class Tracker:
-    """Per-frame RGB-D or stereo tracking; the stereo/RGB-D initialization
-    is predicated inside the frame step.
+    """Per-frame tracking for the three sensors; the stereo/RGB-D
+    initialization is predicated inside the frame step, the monocular one
+    runs at the System level (``pipeline/mono_init.py``).
 
     ``device=None`` means the card (``cuda``) and raises where there is
     none; the tracker runs on the CPU only when asked to (``device="cpu"``).
@@ -293,12 +359,10 @@ class Tracker:
     CHUNK = 16   # frames moved to the device per transfer
 
     def __init__(self, cfg: SlamConfig, device=None):
-        if cfg.localization_only:
-            raise NotImplementedError(
-                "localization-only mode is not ported yet")
-        if cfg.sensor == SENSOR_MONOCULAR:
-            raise NotImplementedError("the monocular sensor is not ported yet")
         self.cfg = cfg
+        # the System's chunk: mono spawns points only by triangulation at
+        # chunk boundaries, so a finer chunk keeps its map growing
+        self.chunk = 8 if cfg.sensor == SENSOR_MONOCULAR else self.CHUNK
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -317,7 +381,8 @@ class Tracker:
         self._t_init = torch.zeros(3, dtype=torch.float32, device=self.device)
         self.carry = self._fresh_carry(map_state.empty(cfg, self.device))
 
-    def _fresh_carry(self, m: map_state.MapState) -> TrackCarry:
+    def _fresh_carry(self, m: map_state.MapState,
+                     initialized: bool = False) -> TrackCarry:
         P = self.cfg.orb.max_kps
         dev = self.device
         i32 = torch.int32
@@ -327,7 +392,7 @@ class Tracker:
 
         q0, t0 = se3.identity(device=dev)
         return TrackCarry(
-            m=m, initialized=scalar(False, torch.bool),
+            m=m, initialized=scalar(initialized, torch.bool),
             q=q0, t=t0, vel_q=q0.clone(), vel_t=t0.clone(),
             last_mp=torch.full((P,), -1, dtype=i32, device=dev),
             last_oct=torch.zeros((P,), dtype=i32, device=dev),
@@ -351,11 +416,13 @@ class Tracker:
         return int(self.carry.m.n_kfs)
 
     def to_wire(self, grays, auxs):
-        """Float images -> wire format: u8 gray; u8 right image (stereo) or
-        u16 millimetre depth (RGB-D)."""
+        """Float images -> wire format: u8 gray; u8 right image (stereo),
+        u16 millimetre depth (RGB-D) or None (mono, no second image)."""
         grays8 = np.clip(np.round(np.asarray(grays, np.float32)),
                          0, 255).astype(np.uint8)
-        if self.cfg.sensor == SENSOR_STEREO:
+        if self.cfg.sensor == SENSOR_MONOCULAR:
+            aux_w = None
+        elif self.cfg.sensor == SENSOR_STEREO:
             aux_w = np.clip(np.round(np.asarray(auxs, np.float32)),
                             0, 255).astype(np.uint8)
         else:
@@ -366,16 +433,17 @@ class Tracker:
     def process_chunk(self, grays: np.ndarray, depths: np.ndarray,
                       timestamps) -> List[FrameRecord]:
         """Track a batch of frames, grays/depths (N, H, W) float images:
-        depth in metres (RGB-D) or the right image (stereo). The frame loop
-        never waits for the device; the records are fetched once at the end
-        (``flush``)."""
+        depth in metres (RGB-D) or the right image (stereo); mono ignores
+        ``depths`` (None). The frame loop never waits for the device; the
+        records are fetched once at the end (``flush``)."""
         self._last_chunk = len(self.records)
         grays, depths = self.to_wire(grays, depths)
         n = grays.shape[0]
         for w0 in range(0, n, self.CHUNK):
             w1 = min(w0 + self.CHUNK, n)
             g = torch.from_numpy(grays[w0:w1]).to(self.device)
-            d = torch.from_numpy(depths[w0:w1].astype(np.int32)).to(self.device)
+            d = (torch.from_numpy(depths[w0:w1].astype(np.int32)).to(
+                self.device) if depths is not None else [None] * (w1 - w0))
             outs = []
             for j in range(w1 - w0):
                 frame = build_frame(self.cfg, g[j], d[j])
@@ -424,6 +492,13 @@ class Tracker:
         relocalization replay re-tracks that chunk and records it anew)."""
         self._pending = []
         del self.records[self._last_chunk:]
+
+    def attach_map(self, m: map_state.MapState):
+        """Adopt a loaded map and track against it from the origin
+        (``System::LoadMap``: the tracker re-acquires by local-map search or
+        by relocalization)."""
+        self.carry = self._fresh_carry(m, initialized=True)
+        self.state = OK
 
     def adopt_map(self, m: map_state.MapState):
         """Swap in an externally updated map (loop correction, global BA),

@@ -11,11 +11,21 @@ bitwise-majority centroids, run once on the host in numpy. It is this
 package's own copy of the reference's code and draws from
 ``np.random.default_rng(seed)`` in the same order, so the same descriptors
 give the same tree bit for bit. Descriptor words are int32 with the
-reference's uint32 bits. Loading and saving vocabulary files is not ported.
+reference's uint32 bits.
+
+Vocabulary files: DBoW2's binary format (``load_orbvoc_binary``; the text
+format too through ``load_orbvoc``, which writes the binary file beside a
+text one, as ``System.cc:68-88`` does) and the npz layout of the
+reference (``save_npz`` / ``load_npz``). Only the reference's pure-Python
+readers are ported: its native C++ reader (``native/vocab_loader.cc``)
+comes with Slice 7b, and nothing here looks for it. The binary reader is
+numpy over the packed 45-byte records; the text reader parses one node
+per line in Python, which at ORBvoc scale takes minutes, so convert once.
 """
 
 from __future__ import annotations
 
+import struct
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -248,3 +258,159 @@ def l1_score(word_a, w_a, word_b, w_b, num_words: int):
         torch.clamp(word_a, min=0).to(torch.int64)]
     return torch.sum(torch.where(word_a >= 0, torch.minimum(w_a, gb),
                                  torch.zeros_like(w_a)))
+
+
+# ------------------------------------------------------------ vocabulary files
+
+_REC = struct.Struct("<i?32sd")   # parent, isLeaf, descriptor, weight
+
+
+def _parse_bin_py(path: str):
+    """DBoW2 binary format (``TemplatedVocabulary.h:1473-1546``): header
+    ``k L scoring weighting`` (int32), then per non-root node a packed
+    45-byte record ``parent (int32) isLeaf (u8) desc (32 B) weight (f64)``.
+    Returns (k, L, parents int32, is_leaf bool, descs (n, 32) u8, weights
+    float64)."""
+    with open(path, "rb") as f:
+        k, L, _scoring, _weighting = struct.unpack("<iiii", f.read(16))
+        raw = f.read()
+    n_nodes = len(raw) // _REC.size
+    arr = np.frombuffer(raw[:n_nodes * _REC.size], np.uint8).reshape(
+        n_nodes, _REC.size)
+    parents = arr[:, :4].copy().view("<i4")[:, 0]
+    is_leaf = arr[:, 4].astype(bool)
+    descs = arr[:, 5:37].copy()
+    weights = arr[:, 37:45].copy().view("<f8")[:, 0]
+    return k, L, parents.astype(np.int32), is_leaf, descs, weights
+
+
+def _parse_txt_py(path: str):
+    """DBoW2 text format (``loadFromTextFile``): a first line ``k L scoring
+    weighting``, then one node per line, ``parent isLeaf b0 .. b31
+    weight``. Same return as ``_parse_bin_py``."""
+    with open(path, "r") as f:
+        k, L = (int(v) for v in f.readline().split()[:2])
+        rows = [line.split() for line in f if line.strip()]
+    ints = np.array([r[:34] for r in rows], np.int64).reshape(-1, 34)
+    weights = np.array([r[34] for r in rows], np.float64)
+    return (k, L, ints[:, 0].astype(np.int32), ints[:, 1].astype(bool),
+            ints[:, 2:].astype(np.uint8), weights)
+
+
+def write_orbvoc_bin(path: str, k: int, L: int, parents, is_leaf, descs,
+                     weights):
+    """Write the DBoW2 binary format (``saveToBinFile``'s layout)."""
+    n = len(parents)
+    rec = np.zeros((n, _REC.size), np.uint8)
+    rec[:, :4] = np.ascontiguousarray(parents, "<i4").view(np.uint8).reshape(
+        n, 4)
+    rec[:, 4] = np.asarray(is_leaf, np.uint8)
+    rec[:, 5:37] = np.asarray(descs, np.uint8)
+    rec[:, 37:45] = np.ascontiguousarray(weights, "<f8").view(
+        np.uint8).reshape(n, 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<iiii", k, L, 0, 0))
+        f.write(rec.tobytes())
+
+
+def load_orbvoc(path: str, cfg: SlamConfig, auto_convert: bool = True, *,
+                device) -> Vocabulary:
+    """Load a DBoW2 vocabulary, binary (``.bin``) or text (``.txt``),
+    replicating ``System.cc:68-88``: a text vocabulary is parsed once and
+    re-saved beside it in the binary format (``auto_convert``), so later
+    loads take the binary path (``README.md:12``)."""
+    if path.endswith(".txt"):
+        k, L, parents, is_leaf, descs, weights = _parse_txt_py(path)
+        if auto_convert:
+            write_orbvoc_bin(path[:-4] + ".bin", k, L, parents, is_leaf,
+                             descs, weights)
+    else:
+        k, L, parents, is_leaf, descs, weights = _parse_bin_py(path)
+    return _relayout(k, L, parents, descs, weights, cfg, device)
+
+
+def load_orbvoc_binary(path: str, cfg: SlamConfig, *, device) -> Vocabulary:
+    """Binary-format loader (``TemplatedVocabulary.h:1473-1546``)."""
+    k, L, parents, _, descs, weights = _parse_bin_py(path)
+    return _relayout(k, L, parents, descs, weights, cfg, device)
+
+
+def _vocab(node_desc: np.ndarray, word_weight: np.ndarray, k: int, L: int,
+           levels_up: int, device) -> Vocabulary:
+    return Vocabulary(
+        node_desc=torch.from_numpy(np.ascontiguousarray(
+            node_desc, np.uint32).view(np.int32)).to(device),
+        word_weight=torch.from_numpy(np.asarray(
+            word_weight, np.float32)).to(device),
+        k=k, levels=L, levels_up=levels_up)
+
+
+def _relayout(k, L, parents, descs, weights, cfg: SlamConfig,
+              device) -> Vocabulary:
+    """Re-lay the parent-linked node list into the dense level arrays of
+    ``transform``. Nodes beyond a level's dense slots (DBoW2 trees are
+    ragged where clusters were small) keep their parent's descriptor, so
+    the descent stays well defined."""
+    n_nodes = len(parents)
+
+    # fast path: a COMPLETE tree in breadth-first id order (every level
+    # full, children contiguous) re-lays with array reshapes, which ORBvoc
+    # scale (k=10, L=6, 1.1 M nodes) needs
+    sizes = [k ** lvl for lvl in range(1, L + 1)]
+    if n_nodes == sum(sizes):
+        starts = np.cumsum([0] + sizes)
+        ids = np.arange(1, n_nodes + 1)
+        lvl = np.searchsorted(starts[1:], ids - 1, side="right")
+        slot = (ids - 1) - starts[lvl]
+        expect_parent = np.where(
+            lvl == 0, 0, starts[np.maximum(lvl - 1, 0)] + slot // k + 1)
+        if np.array_equal(parents[:n_nodes].astype(np.int64), expect_parent):
+            node_desc = np.ascontiguousarray(descs[:n_nodes]).view(
+                "<u4").reshape(n_nodes, 8)
+            return _vocab(node_desc, weights[starts[L - 1]:], k, L,
+                          cfg.vocab.levels_up, device)
+
+    # breadth-first from the root: record i holds node id i+1 (the root,
+    # id 0, is not written); child j of dense node i sits at dense slot
+    # i*k+j of the next level
+    children = {}
+    for i in range(n_nodes):
+        children.setdefault(int(parents[i]), []).append(i + 1)
+    level_descs, level_weights = [], []
+    frontier = [(c, j) for j, c in enumerate(children.get(0, [])[:k])]
+    for lvl in range(1, L + 1):
+        n_l = k ** lvl
+        d_l = np.zeros((n_l, 32), np.uint8)
+        w_l = np.zeros((n_l,), np.float64)
+        filled = np.zeros((n_l,), bool)
+        nxt = []
+        for nid, dense in frontier:
+            d_l[dense] = descs[nid - 1]
+            w_l[dense] = weights[nid - 1]
+            filled[dense] = True
+            for j, c in enumerate(children.get(nid, [])[:k]):
+                nxt.append((c, dense * k + j))
+        if lvl > 1 and level_descs:     # ragged holes: the parent's desc
+            parent_d = np.repeat(level_descs[-1], k, axis=0)
+            d_l[~filled] = parent_d[~filled]
+        level_descs.append(d_l)
+        level_weights.append(w_l)
+        frontier = nxt
+    node_desc = np.concatenate(
+        [d.view("<u4").reshape(d.shape[0], 8) for d in level_descs], axis=0)
+    return _vocab(node_desc, level_weights[-1], k, L, cfg.vocab.levels_up,
+                  device)
+
+
+def save_npz(vocab: Vocabulary, path: str):
+    """The reference's npz layout (descriptor words as uint32)."""
+    np.savez_compressed(
+        path, node_desc=vocab.node_desc.cpu().numpy().view(np.uint32),
+        word_weight=vocab.word_weight.cpu().numpy(), k=vocab.k,
+        levels=vocab.levels, levels_up=vocab.levels_up)
+
+
+def load_npz(path: str, *, device) -> Vocabulary:
+    d = np.load(path)
+    return _vocab(d["node_desc"], d["word_weight"], int(d["k"]),
+                  int(d["levels"]), int(d["levels_up"]), device)

@@ -5,6 +5,7 @@ loop closing's programs.
     python -m orb_slam_2_ros_tpu_torch.profiling mapping    # local mapping
     python -m orb_slam_2_ros_tpu_torch.profiling loop       # loop closing
     python -m orb_slam_2_ros_tpu_torch.profiling reloc      # relocalization
+    python -m orb_slam_2_ros_tpu_torch.profiling mono       # mono init, VO
 
 **Tracking.** Tracks the first 72 frames of ``chip_smoke.py``'s 96-frame synthetic orbit
 at the reference operating point on ``cuda``. Frames 0-63 run first, in
@@ -82,6 +83,22 @@ attempt the wall ms, device busy ms, launches, the idle share and the stage
 table, and the matcher kernel's launches and mean device time; the tables
 also go to ``chiprun_out/profile_reloc.txt``; the last line is a JSON
 summary.
+
+**Mono and VO.** A monocular ``System`` (loop closing off) takes the
+orbit's frames one at a time until the two-view initializer succeeds; each
+call of the initializer is timed with the host clock between two
+synchronisations. A second system, seeded the same, repeats the calls and
+runs the successful one under ``torch.profiler`` with a range around the
+initializer's parts (the frame, ``search_for_initialization``,
+``initialize``, ``_build_map`` and its structure-only BA). Then a
+localization-only system on a map of the view straight ahead (the
+scenario of ``tests/test_localization_vo.py`` at the full operating point)
+tracks 25 frames that yaw the map out of view, unprofiled, and the next
+frame twice: once timed, once under the profiler with the tracking stages'
+ranges. It prints per case the wall ms, device busy ms, launches, idle
+share and stage table, and the matcher kernel's launches and mean device
+time; the tables also go to ``chiprun_out/profile_mono_vo.txt``; the last
+line is a JSON summary.
 """
 
 from __future__ import annotations
@@ -96,7 +113,8 @@ import time
 import numpy as np
 import torch
 
-from orb_slam_2_ros_tpu_torch.config import SENSOR_RGBD, SlamConfig
+from orb_slam_2_ros_tpu_torch.config import (SENSOR_MONOCULAR, SENSOR_RGBD,
+                                             SlamConfig)
 from orb_slam_2_ros_tpu_torch.frontend import extractor, matcher
 from orb_slam_2_ros_tpu_torch.frontend import frame as frame_mod
 from orb_slam_2_ros_tpu_torch.geometry import triangulate
@@ -120,6 +138,8 @@ LOOP_OUT = os.path.join("chiprun_out", "profile_loop.txt")
 PROFILED_DISPATCHES = (4, 8)    # calls of ``dispatch``, counted from 0
 VOCAB_EVERY = 24                # frames whose descriptors train the vocabulary
 RELOC_OUT = os.path.join("chiprun_out", "profile_reloc.txt")
+MONO_OUT = os.path.join("chiprun_out", "profile_mono_vo.txt")
+VO_FRAMES = 25                  # yawed frames before the profiled VO frame
 RELOC_MAP_FRAMES = 32
 RELOC_QUERY = 10                # a frame of the orbit that the map has seen
 RELOC_REPEATS = 3               # unprofiled attempts of each kind
@@ -684,6 +704,139 @@ def main_reloc():
     print(json.dumps(result), flush=True)
 
 
+def _profiled(fn, stages, unit):
+    """Run ``fn`` once timed with the host clock and once under the
+    profiler with ``stages``' ranges. Returns (unprofiled ms, a summary
+    dict, the stage table, the top kernels)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+
+    def timed(f):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+
+    plain_ms = timed(fn[0])
+    with stage_ranges(stages), \
+            torch.profiler.profile(activities=acts) as prof:
+        prof_ms = timed(fn[1])
+    summary = summarize(prof.events(), 1, stages, unit=unit)
+    busy = summary[f"device_busy_ms_per_{unit}"]
+    ran = [r for r in summary["stages"] if r[f"calls_per_{unit}"] > 0]
+    out = {"wall_ms_unprofiled": plain_ms, "wall_ms_profiled": prof_ms,
+           "idle_share_vs_unprofiled": 1.0 - busy / plain_ms,
+           "matcher_kernel": kernel_by_name(prof.key_averages(),
+                                            MATCHER_KERNEL),
+           **{k: v for k, v in summary.items() if k != "stages"},
+           "stages": ran}
+    return out, stage_table(ran, unit=unit), prof.key_averages().table(
+        sort_by="self_device_time_total", row_limit=25)
+
+
+def main_mono():
+    from orb_slam_2_ros_tpu_torch.io.synthetic import make_room, render
+    from orb_slam_2_ros_tpu_torch.pipeline import mono_init
+    from orb_slam_2_ros_tpu_torch.solvers import initializer
+
+    smi = _card()
+    ds = SyntheticRGBD(SlamConfig(sensor=SENSOR_RGBD), n_frames=96, seed=0,
+                       trajectory="orbit")
+    mono = SlamConfig(sensor=SENSOR_MONOCULAR)
+    first = System(mono, enable_loop_closing=False).mono_init
+    init_ms, frames = [], []
+    for i in range(8):
+        frames.append(ds[i][0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = first.process(frames[-1], i)
+        torch.cuda.synchronize()
+        init_ms.append(1e3 * (time.perf_counter() - t0))
+        if out is not None:
+            break
+    if out is None:
+        raise AssertionError("the initializer did not succeed in 8 frames")
+    # two more initializers seeded the same, each up to the successful call
+    again, replay = (System(mono, enable_loop_closing=False).mono_init
+                     for _ in range(2))
+    for mi in (again, replay):
+        for j, g in enumerate(frames[:-1]):
+            mi.process(g, j)
+    stages = (
+        (mono_init.MonoInitializer, "process", "init_attempt", 0),
+        (frame_mod, "build_mono", "build_frame", 1),
+        (matcher, "search_for_initialization", "search_for_initialization",
+         1),
+        (initializer, "initialize", "initialize", 1),
+        (mono_init, "_build_map", "build_map", 1),
+        (ba, "bundle_adjustment", "structure_only_ba", 2),
+        (map_state, "refresh_point_stats", "refresh_point_stats", 2))
+    i = len(frames) - 1
+    init, init_table, init_top = _profiled(
+        (lambda: again.process(frames[-1], i),
+         lambda: replay.process(frames[-1], i)), stages, "init")
+    init["calls_ms"] = init_ms
+    init["init_frame"] = i
+
+    cfg = SlamConfig(sensor=SENSOR_RGBD)
+    planes = make_room(0)
+
+    def view(yaw):
+        c, s = np.cos(yaw), np.sin(yaw)
+        R = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
+        return render(planes, R, np.zeros(3, np.float32), cfg.camera)
+
+    g0, d0 = view(0.0)
+    base = tracking.Tracker(cfg)
+    base.process(g0, d0, 0.0)
+    loc = tracking.Tracker(cfg.replace(localization_only=True))
+    loc.attach_map(base.map)
+    yaws = np.linspace(0.0, 1.3, VO_FRAMES + 2)
+    views = [view(y) for y in yaws]
+    loc.process_chunk(np.stack([v[0] for v in views[:VO_FRAMES]]),
+                      np.stack([v[1] for v in views[:VO_FRAMES]]),
+                      list(range(VO_FRAMES)))
+    carry = loc.carry
+    recs = []
+
+    def vo_frame(k):
+        def run():
+            loc.carry = carry
+            recs.append(loc.process(*views[k], float(k)))
+        return run
+
+    vo, vo_table, vo_top = _profiled((vo_frame(VO_FRAMES), vo_frame(
+        VO_FRAMES)), STAGES, "frame")
+    vo["record"] = {"state": recs[-1].state,
+                    "n_inliers": recs[-1].n_inliers,
+                    "n_map_inliers": recs[-1].n_map_inliers}
+    if vo["matcher_kernel"]["launches"] != 6:
+        raise AssertionError(f"a VO frame made {vo['matcher_kernel']} "
+                             f"launches of {MATCHER_KERNEL}, not 6")
+    text = [smi]
+    for name, unit, res, table, top in (
+            ("mono init", "init", init, init_table, init_top),
+            ("VO frame", "frame", vo, vo_table, vo_top)):
+        head = (f"{name}: wall ms {res['wall_ms_unprofiled']:.3f} "
+                f"unprofiled, {res['wall_ms_profiled']:.3f} profiled; device "
+                f"busy {res[f'device_busy_ms_per_{unit}']:.3f} ms in "
+                f"{res[f'launches_per_{unit}']:.0f} launches; idle share "
+                f"{res['idle_share_vs_unprofiled']:.4f} (unprofiled); "
+                f"{MATCHER_KERNEL}: {res['matcher_kernel']['launches']} "
+                f"launches")
+        print(head)
+        print(table)
+        text += [head, table, top, ""]
+    print(f"mono init: the successful call was frame {i}; every call "
+          f"{[round(x, 1) for x in init_ms]} ms; VO frame: {vo['record']}")
+    os.makedirs(os.path.dirname(MONO_OUT), exist_ok=True)
+    with open(MONO_OUT, "w") as f:
+        f.write("\n".join(text))
+    print(json.dumps({"card": smi, "mono_init": init, "vo_frame": vo}),
+          flush=True)
+
+
 if __name__ == "__main__":
     import sys
     if sys.argv[1:] == ["mapping"]:
@@ -692,8 +845,10 @@ if __name__ == "__main__":
         main_loop()
     elif sys.argv[1:] == ["reloc"]:
         main_reloc()
+    elif sys.argv[1:] == ["mono"]:
+        main_mono()
     elif sys.argv[1:]:
         raise SystemExit("usage: python -m orb_slam_2_ros_tpu_torch.profiling "
-                         "[mapping|loop|reloc]")
+                         "[mapping|loop|reloc|mono]")
     else:
         main()

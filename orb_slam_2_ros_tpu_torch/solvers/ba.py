@@ -18,9 +18,15 @@ by the cameras outside the window.
 The landmark-side sums (gradient, Hpp, the camera-landmark cross blocks)
 are segment sums of per-edge blocks over a compact axis of at most
 ``cfg.solver.local_ba_max_points`` free landmarks (``ops/segment.py``:
-the same result on every run). The matrix-free CG solver, the edge-list
-global BA and the sharded variants of the reference's file are not ported
-yet.
+the same result on every run).
+
+``bundle_adjustment`` is the reference's general edge-list LM with a
+matrix-free CG solve of the reduced camera system
+(``build_problem``, ``_edge_terms``, ``_weights``, ``_make_lm_step``,
+without ``axis_name``): the monocular initializer runs it with both
+cameras fixed. Its edge sums are segment sums too. The chunked edge-list
+global BA (``gba_init``, ``gba_chunk``) and the sharded variants are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -66,6 +72,239 @@ def _inv3x3(A: torch.Tensor) -> torch.Tensor:
 
 def _finite(x: torch.Tensor) -> torch.Tensor:
     return torch.nan_to_num(x, nan=0.0, posinf=0.0, neginf=0.0)
+
+
+class BAProblem(NamedTuple):
+    """Static-shape BA instance. E edges reference C cameras and M points."""
+
+    cam_idx: torch.Tensor    # (E,) int64 -> camera slot
+    mp_idx: torch.Tensor     # (E,) int64 -> point slot
+    obs: torch.Tensor        # (E, 3) (u, v, uR); uR masked for mono edges
+    is_stereo: torch.Tensor  # (E,) bool
+    inv_sigma2: torch.Tensor  # (E,) float32
+    valid: torch.Tensor      # (E,) bool
+
+
+def build_problem(kf_uv, kf_ur, kf_octave, kf_mp, kf_kp_valid,
+                  cfg: SlamConfig) -> BAProblem:
+    """Edges from C rows of the observation table ((C, P) slices of the
+    MapState keyframe pools), one per (row, keypoint)."""
+    C, P = kf_mp.shape
+    dev = kf_mp.device
+    mp_idx = kf_mp.reshape(-1)
+    ur = kf_ur.reshape(-1)
+    octv = kf_octave.reshape(-1).to(torch.float32)
+    return BAProblem(
+        cam_idx=torch.arange(C, device=dev).repeat_interleave(P),
+        mp_idx=torch.clamp(mp_idx, min=0).to(torch.int64),
+        obs=torch.cat([kf_uv.reshape(-1, 2), ur[:, None]], dim=-1),
+        is_stereo=ur > 0,
+        inv_sigma2=torch.pow(torch.full_like(octv, cfg.orb.scale_factor),
+                             -2.0 * octv),
+        valid=(mp_idx >= 0) & kf_kp_valid.reshape(-1))
+
+
+def _edge_terms(prob: BAProblem, q, t, pos, cfg: SlamConfig):
+    """Residuals e (E, 3), camera Jacobians Jc (E, 3, 6), point Jacobians
+    Jp (E, 3, 3), depth z (E,): left-multiplied exp(xi) * T camera update,
+    additive world-frame point update (g2o's EdgeSE3ProjectXYZ /
+    EdgeStereoSE3ProjectXYZ)."""
+    cam = cfg.camera
+    qc = q[prob.cam_idx]
+    xc = se3.apply(qc, t[prob.cam_idx], pos[prob.mp_idx])
+    x, y = xc[:, 0], xc[:, 1]
+    z = torch.clamp(xc[:, 2], min=_EPS)
+    iz = 1.0 / z
+    iz2 = iz * iz
+    u = cam.fx * x * iz + cam.cx
+    v = cam.fy * y * iz + cam.cy
+    e = torch.stack([u, v, u - cam.bf * iz], dim=-1) - prob.obs
+    zeros = torch.zeros_like(z)
+    du = torch.stack([cam.fx * iz, zeros, -cam.fx * x * iz2], -1)
+    dv = torch.stack([zeros, cam.fy * iz, -cam.fy * y * iz2], -1)
+    dur = du + torch.stack([zeros, zeros, cam.bf * iz2], -1)
+    dpred = torch.stack([du, dv, dur], dim=1)               # (E, 3, 3)
+    nskew = torch.stack([
+        torch.stack([zeros, xc[:, 2], -xc[:, 1]], -1),
+        torch.stack([-xc[:, 2], zeros, xc[:, 0]], -1),
+        torch.stack([xc[:, 1], -xc[:, 0], zeros], -1),
+    ], dim=1)                                               # -[xc]x
+    eye = torch.eye(3, dtype=z.dtype, device=z.device).expand_as(nskew)
+    Jc = dpred @ torch.cat([eye, nskew], dim=-1)            # (E, 3, 6)
+    Jp = dpred @ se3.quat_to_matrix(qc)                     # (E, 3, 3)
+    return e, Jc, Jp, z
+
+
+def _weights(prob: BAProblem, e, z, edge_mask, cfg: SlamConfig,
+             use_kernel: bool):
+    """Per-edge-component weights W (E, 3) = invSigma2 * huber * component
+    mask, and the robust total error."""
+    sc = cfg.solver
+    delta2 = torch.where(prob.is_stereo, sc.huber_stereo2, sc.huber_mono2)
+    ones = torch.ones_like(z)
+    comp_w = torch.stack([ones, ones, prob.is_stereo.to(z.dtype)], -1)
+    chi2 = torch.sum(e * e * comp_w, dim=-1) * prob.inv_sigma2
+    if use_kernel:
+        delta = torch.sqrt(delta2)
+        sq = torch.sqrt(chi2)
+        w_rob = torch.where(chi2 <= delta2, ones,
+                            delta / torch.clamp(sq, min=_EPS))
+        rho = torch.where(chi2 <= delta2, chi2, 2 * delta * sq - delta2)
+    else:
+        w_rob, rho = ones, chi2
+    ok = edge_mask & (z > _EPS)
+    w = torch.where(ok, prob.inv_sigma2 * w_rob, torch.zeros_like(z))
+    err = torch.sum(torch.where(ok, rho, torch.zeros_like(rho)))
+    return w[:, None] * comp_w, err
+
+
+def _make_lm_step(prob: BAProblem, cfg: SlamConfig, cam_free, mp_free,
+                  cg_iters: int):
+    """One damped LM iteration of the Schur-complement BA, with the reduced
+    camera system solved by preconditioned CG, every S-product evaluated
+    edge-wise (gather -> 3x6/3x3 products -> segment sum). ``cam_free``
+    None means every camera fixed: the CG's answer is then exactly zero
+    (its right-hand side and every product are masked to zero), so it is
+    not run, and neither are the camera-side sums."""
+    ci, pi = prob.cam_idx, prob.mp_idx
+    M = mp_free.shape[0]
+    mpf = mp_free.to(torch.float32)[:, None]                # (M, 1)
+    eye3 = torch.eye(3, device=mpf.device)
+    if cam_free is not None:
+        C = cam_free.shape[0]
+        camf = cam_free.to(torch.float32)[:, None]          # (C, 1)
+        eye6 = torch.eye(6, device=mpf.device)
+
+    def cam_sum(vals):
+        return segment_sum(ci, vals, C)
+
+    def pt_sum(vals):
+        return segment_sum(pi, vals, M)
+
+    def lm_step(q, t, pos, edge_mask, use_kernel, lam, err):
+        e, Jc, Jp, z = _edge_terms(prob, q, t, pos, cfg)
+        W, _ = _weights(prob, e, z, edge_mask, cfg, use_kernel)
+        We = W * e
+        JpT = Jp.mT
+        bp = -pt_sum((JpT @ We[..., None])[..., 0]) * mpf
+        Hpp = pt_sum(JpT @ (W[..., None] * Jp))             # (M, 3, 3)
+        Hpp_d = Hpp + (lam * torch.diagonal(Hpp, dim1=-2, dim2=-1)
+                       + 1e-8)[..., None] * eye3
+        # fixed points: a zero inverse takes them out of the Schur term
+        Hpp_inv = _inv3x3(Hpp_d) * mpf[..., None]
+
+        if cam_free is None:
+            xc = None
+            xp = (Hpp_inv @ bp[..., None])[..., 0]
+        else:
+            JcT = Jc.mT
+            bc = -cam_sum((JcT @ We[..., None])[..., 0]) * camf
+            Hcc_d = cam_sum(JcT @ (W[..., None] * Jc))      # (C, 6, 6)
+            dampC = lam * torch.diagonal(Hcc_d, dim1=-2, dim2=-1) + 1e-8
+
+            def Hpc_mv(x):
+                jx = (Jc @ (x * camf)[ci][..., None])[..., 0]
+                return pt_sum((JpT @ (W * jx)[..., None])[..., 0])
+
+            def Hcp_mv(x):
+                jx = (Jp @ (x * mpf)[pi][..., None])[..., 0]
+                return cam_sum((JcT @ (W * jx)[..., None])[..., 0]) * camf
+
+            def Hcc_mv(x):
+                jx = (Jc @ (x * camf)[ci][..., None])[..., 0]
+                y = cam_sum((JcT @ (W * jx)[..., None])[..., 0])
+                return y * camf + dampC * x * camf
+
+            def S_mv(x):
+                tp = (Hpp_inv @ Hpc_mv(x)[..., None])[..., 0]
+                return Hcc_mv(x) - Hcp_mv(tp)
+
+            bc_red = (bc - Hcp_mv((Hpp_inv @ bp[..., None])[..., 0])) * camf
+            # block-Jacobi preconditioner: damped Hcc blocks of the free
+            # cameras, identity rows for the fixed ones
+            Pmat = ((Hcc_d + torch.diag_embed(dampC)) * camf[..., None]
+                    + eye6 * (1.0 - camf[..., None]) + eye6 * 1e-6)
+            P_inv = torch.linalg.inv_ex(Pmat)[0]
+
+            def precond(r):
+                return (P_inv @ r[..., None])[..., 0] * camf
+
+            x = torch.zeros_like(bc_red)
+            r = bc_red
+            p = precond(r)
+            rz = torch.sum(r * p)
+            for _ in range(cg_iters):
+                Ap = S_mv(p)
+                alpha = rz / torch.clamp(torch.sum(p * Ap), min=1e-20)
+                x = x + alpha * p
+                r = r - alpha * Ap
+                zz = precond(r)
+                rz_new = torch.sum(r * zz)
+                p = zz + rz_new / torch.clamp(rz, min=1e-20) * p
+                rz = rz_new
+            # the f32 Schur system can make CG diverge at tiny damping:
+            # sanitize, then trust-region each camera's step, so that the
+            # error comparison below decides
+            xc = _finite(x)
+            nrm = torch.linalg.norm(xc, dim=-1, keepdim=True)
+            xc = xc * torch.clamp(10.0 / torch.clamp(nrm, min=1e-20),
+                                  max=1.0)
+            xp = (Hpp_inv @ (bp - Hpc_mv(xc))[..., None])[..., 0]
+
+        if xc is None:
+            q_new, t_new = q, t
+        else:
+            dq, dt = se3.exp(xc)
+            q_new, t_new = se3.compose(dq, dt, q, t)
+            q_new = torch.where(cam_free[:, None], q_new, q)
+            t_new = torch.where(cam_free[:, None], t_new, t)
+        pos_new = torch.where(mp_free[:, None], pos + xp, pos)
+        e2, _, _, z2 = _edge_terms(prob, q_new, t_new, pos_new, cfg)
+        _, err_new = _weights(prob, e2, z2, edge_mask, cfg, use_kernel)
+        improved = err_new < err
+        q = torch.where(improved, q_new, q)
+        t = torch.where(improved, t_new, t)
+        pos = torch.where(improved, pos_new, pos)
+        lam = torch.clamp(torch.where(improved, lam * 0.3, lam * 5.0),
+                          1e-10, 1e8)
+        err = torch.where(improved, err_new, err)
+        return q, t, pos, lam, err
+
+    return lm_step
+
+
+def bundle_adjustment(q, t, cam_free, pos, mp_free, prob: BAProblem,
+                      cfg: SlamConfig, phases=(5, 10), cg_iters: int = 100,
+                      robust: bool = True):
+    """Schur-LM bundle adjustment over an edge list.
+
+    q (C, 4), t (C, 3): world->camera poses; cam_free (C,) bool (False =
+    gauge-fixed), or None when every camera is fixed (the CG is skipped,
+    with the same result); pos (M, 3) points; mp_free (M,) bool. phases:
+    LM iteration counts with chi2 edge pruning between phases; the Huber
+    kernel in the first phase only (when ``robust``). Every iteration is
+    predicated on the device: nothing is read on the host.
+
+    Returns (q, t, pos, edge_inlier (E,) bool)."""
+    sc = cfg.solver
+    delta2 = torch.where(prob.is_stereo, sc.huber_stereo2, sc.huber_mono2)
+    lm_step = _make_lm_step(prob, cfg, cam_free, mp_free, cg_iters)
+    edge_mask = prob.valid
+    for i, n_iters in enumerate(phases):
+        use_kernel = robust and i == 0
+        e, _, _, z = _edge_terms(prob, q, t, pos, cfg)
+        _, err = _weights(prob, e, z, edge_mask, cfg, use_kernel)
+        lam = torch.full_like(err, 1e-4)
+        for _ in range(n_iters):
+            q, t, pos, lam, err = lm_step(q, t, pos, edge_mask, use_kernel,
+                                          lam, err)
+        # chi2 pruning between phases (Optimizer.cc:781-812)
+        e, _, _, z = _edge_terms(prob, q, t, pos, cfg)
+        ones = torch.ones_like(z)
+        comp_w = torch.stack([ones, ones, prob.is_stereo.to(z.dtype)], -1)
+        chi2 = torch.sum(e * e * comp_w, -1) * prob.inv_sigma2
+        edge_mask = prob.valid & (chi2 <= delta2) & (z > _EPS)
+    return q, t, pos, edge_mask
 
 
 def windowed_bundle_adjustment(kf_q, kf_t, window_rows, kf_uv, kf_ur,

@@ -332,3 +332,120 @@ def test_cuda_stereo_tracker_matches_cpu(cuda):
     assert [r.state for r in gpu] == [r.state for r in cpu] == [OK] * n
     np.testing.assert_allclose(np.stack([r.c_w for r in gpu]),
                                np.stack([r.c_w for r in cpu]), atol=5e-3)
+
+
+def mono_cfg():
+    """``tests/test_mono_tracking.py``'s configuration."""
+    cam = CameraConfig(width=320, height=240, fx=260.0, fy=260.0,
+                       cx=159.5, cy=119.5, bf=20.0, th_depth=50.0)
+    return SlamConfig(
+        sensor=0, camera=cam,
+        orb=OrbConfig(n_features=500, n_levels=3, max_kps=640),
+        map=MapConfig(max_kfs=16, max_mps=4096, max_kps=640),
+        tracking=TrackingConfig(min_init_mono_matches=60))
+
+
+def test_cuda_mono_system_matches_cpu(cuda):
+    """Mono ``System`` over 16 frames of the arc of
+    ``tests/test_mono_tracking.py`` on the card against the CPU: the same
+    first OK frame, every later frame OK on both, the same keyframe count,
+    the point counts within 5%, the Sim3-aligned ATE of both below 0.05 m;
+    on the card the kernel launched 4 times per tracked frame plus 8 times
+    per mapping step, and equal to its plain version on every call."""
+    from orb_slam_2_ros_tpu_torch.io import ate_rmse
+    cfg = mono_cfg()
+    n = 16
+    ds = SyntheticRGBD(cfg, n_frames=24, seed=0, radius=1.5, angle_range=0.9)
+    grays = np.stack([ds[i][0] for i in range(n)])
+    out = {}
+    for dev in ("cpu", "cuda"):
+        system = System(cfg, ba_window=8, enable_loop_closing=False,
+                        device=dev)
+        tracked = [0]
+        process_chunk = system.tracker.process_chunk
+
+        def counted(g, *args, **kwargs):
+            tracked[0] += len(g)
+            return process_chunk(g, *args, **kwargs)
+
+        system.tracker.process_chunk = counted
+        before = match_kernel.LAUNCHES
+        with kernel_timing.capture_calls(matcher, "masked_best_two") as calls:
+            recs = system.track_chunk(grays, None, ds.timestamps[:n])
+        launched = match_kernel.LAUNCHES - before
+        states = [r.state for r in recs]
+        ok = [r for r in recs if r.state == OK]
+        ate = ate_rmse(np.stack([r.c_w for r in ok]),
+                       np.stack([ds.gt_pose_wc(r.frame_id)[1] for r in ok]),
+                       with_scale=True)
+        out[dev] = (states, system.tracker.n_kfs,
+                    int(system.tracker.map.mp_valid.sum()), ate)
+        if dev == "cuda":
+            assert launched == (4 * tracked[0]
+                                + 8 * system.mapper.n_executed) > 0
+            for args in calls:
+                assert_equal(match_kernel.masked_best_two_cuda(*args),
+                             match_kernel.masked_best_two_reference(*args),
+                             "a mono call")
+    (cs, ck, cp, ca), (gs, gk, gp, ga) = out["cpu"], out["cuda"]
+    first = cs.index(OK)
+    assert gs.index(OK) == first
+    assert all(s == OK for s in gs[first:]) and all(s == OK
+                                                    for s in cs[first:])
+    assert gk == ck and abs(gp - cp) <= 0.05 * cp
+    assert ga < 0.05 and ca < 0.05
+
+
+def test_cuda_vo_frame_matches_cpu(cuda):
+    """One localization-only frame on the card against the CPU from the
+    same carry (a map of the view straight ahead, the camera yawed 1.2 rad
+    so that the map is out of view and the frame rides the temporal VO
+    points): the same state, inliers within 2, the pose within 1e-3; on
+    the card 6 launches (the VO search and its widened retry among them),
+    each equal to its plain version."""
+    from orb_slam_2_ros_tpu_torch.io.synthetic import make_room, render
+    cam = CameraConfig(width=320, height=240, fx=260.0, fy=260.0,
+                       cx=159.5, cy=119.5, bf=20.0, th_depth=50.0)
+    cfg = SlamConfig(sensor=SENSOR_RGBD, camera=cam,
+                     orb=OrbConfig(n_features=500, n_levels=3, max_kps=640),
+                     map=MapConfig(max_kfs=16, max_mps=4096, max_kps=640),
+                     tracking=TrackingConfig(min_init_stereo_kps=200))
+    loc = cfg.replace(localization_only=True)
+    planes = make_room(0)
+
+    def view(yaw):
+        c, s = np.cos(yaw), np.sin(yaw)
+        R = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
+        return render(planes, R, np.zeros(3, np.float32), cam)
+
+    g0, d0 = view(0.0)
+    yaws = np.linspace(0.0, 1.2, 26)
+    frames = [view(y) for y in yaws]
+    base = Tracker(cfg, device="cpu")
+    base.process(g0, d0, 0.0)
+    tracker = Tracker(loc, device="cpu")
+    tracker.attach_map(base.map)
+    tracker.process_chunk(np.stack([f[0] for f in frames[:-1]]),
+                          np.stack([f[1] for f in frames[:-1]]),
+                          list(range(len(frames) - 1)))
+    carry = tracker.carry
+    recs = {}
+    for dev in ("cpu", "cuda"):
+        t = Tracker(loc, device=dev)
+        t.carry = type(carry)(*[
+            x._replace(**{f: v.to(dev) for f, v in x._asdict().items()})
+            if hasattr(x, "_asdict") else x.to(dev) for x in carry])
+        before = match_kernel.LAUNCHES
+        with kernel_timing.capture_calls(matcher, "masked_best_two") as calls:
+            recs[dev] = t.process(*frames[-1], 0.0)
+        if dev == "cuda":
+            assert match_kernel.LAUNCHES - before == 6
+            for args in calls:
+                assert_equal(match_kernel.masked_best_two_cuda(*args),
+                             match_kernel.masked_best_two_reference(*args),
+                             "a VO frame's call")
+            assert bool(t.carry.last_vo.any())
+    cpu, gpu = recs["cpu"], recs["cuda"]
+    assert gpu.state == cpu.state == OK
+    assert abs(gpu.n_inliers - cpu.n_inliers) <= 2
+    np.testing.assert_allclose(gpu.c_w, cpu.c_w, atol=1e-3)

@@ -34,7 +34,8 @@ def test_port_imports_no_jax():
                 "solvers.sim3_solver", "solvers.pose_graph",
                 "pipeline.loop_closing", "pipeline.metrics",
                 "eval_loop_closing", "solvers.pnp", "pipeline.relocalization",
-                "frontend.stereo"):
+                "frontend.stereo", "solvers.initializer",
+                "pipeline.mono_init", "pipeline.map_merge"):
         assert f"{pkg}.{new}" in mods, new
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -103,15 +104,39 @@ def test_system_defaults_to_the_card_and_raises_without_one(monkeypatch):
     from orb_slam_2_ros_tpu_torch.pipeline import relocalization
     monkeypatch.setattr(relocalization.Relocalizer, "__init__",
                         lambda *a, **k: built.append(a) or 1 / 0)
+    from orb_slam_2_ros_tpu_torch.config import SENSOR_MONOCULAR
+    from orb_slam_2_ros_tpu_torch.pipeline import mono_init
+    monkeypatch.setattr(mono_init.MonoInitializer, "__init__",
+                        lambda *a, **k: built.append(a) or 1 / 0)
     # loop closing (and with it relocalization) on is the default; with or
-    # without it, with or without a vocabulary, RGB-D or stereo, no device
-    # named means the card
-    for cfg in (SlamConfig(), SlamConfig(sensor=SENSOR_STEREO)):
+    # without it, with or without a vocabulary, a loaded map or
+    # localization-only mode, RGB-D, stereo or mono, no device named means
+    # the card
+    for cfg in (SlamConfig(), SlamConfig(sensor=SENSOR_STEREO),
+                SlamConfig(sensor=SENSOR_MONOCULAR),
+                SlamConfig(localization_only=True)):
         for kwargs in (dict(), dict(enable_loop_closing=True),
-                       dict(enable_loop_closing=False), dict(vocab=object())):
+                       dict(enable_loop_closing=False), dict(vocab=object()),
+                       dict(load_map="no_such_map.npz")):
             with pytest.raises(RuntimeError, match="device=\"cpu\""):
                 slam.System(cfg, **kwargs)
     assert not built            # nothing was built, on any device
+
+
+def test_mono_initializer_defaults_to_the_card_and_raises_without_one(
+        monkeypatch):
+    from orb_slam_2_ros_tpu_torch.config import SENSOR_MONOCULAR, SlamConfig
+    from orb_slam_2_ros_tpu_torch.pipeline import mono_init
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device=\"cpu\""):
+        mono_init.MonoInitializer(SlamConfig(sensor=SENSOR_MONOCULAR))
+    mi = mono_init.MonoInitializer(SlamConfig(sensor=SENSOR_MONOCULAR),
+                                   device="cpu")
+    # the initializer's RANSAC stream: its own generator, seeded as the
+    # reference seeds its key (cfg.seed + 2)
+    want = torch.Generator().manual_seed(SlamConfig().seed + 2)
+    assert torch.equal(mi.generator.get_state(), want.get_state())
 
 
 def test_state_builders_require_a_device():
@@ -133,6 +158,12 @@ def test_state_builders_require_a_device():
         database.empty(SlamConfig())
     with pytest.raises(TypeError):
         vocabulary.train_vocabulary(None, SlamConfig())
+    with pytest.raises(TypeError):
+        vocabulary.load_npz("vocabulary.npz")
+    with pytest.raises(TypeError):
+        vocabulary.load_orbvoc_binary("vocabulary.bin", SlamConfig())
+    with pytest.raises(TypeError):
+        vocabulary.load_orbvoc("vocabulary.txt", SlamConfig())
     for fn in (convert.vocabulary_from_numpy, convert.loop_state_from_numpy,
                convert.dense_gba_state_from_numpy, convert.frame_from_numpy,
                convert.bow_database_from_numpy):

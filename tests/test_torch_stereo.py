@@ -59,7 +59,7 @@ def seq():
 
 
 def _kps(k):
-    return Keypoints(**{f: convert._to_tensor(np.asarray(v), "cpu")
+    return Keypoints(**{f: convert.to_tensor(np.asarray(v), "cpu")
                         for f, v in k._asdict().items()})
 
 

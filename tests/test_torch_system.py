@@ -244,20 +244,28 @@ def test_reset_and_single_frame(seq):
 
 
 def test_unported_modes_raise(seq):
+    """Mono, localization-only and map loading are ported (Slices 6 and
+    7a); what still raises is Slice 7b's (the trajectory savers, the debug
+    image) and Slice 8's (``mesh=``)."""
     cfg = seq["tcfg"]
     off = dict(enable_loop_closing=False, device="cpu")
+    system = tslam.System(cfg, **off)
+    for saver in (system.save_trajectory_tum,
+                  system.save_keyframe_trajectory_tum,
+                  system.save_trajectory_kitti):
+        with pytest.raises(NotImplementedError):
+            saver("trajectory.txt")
     with pytest.raises(NotImplementedError):
-        tslam.System(cfg, load_map="map.npz", **off)
+        system.render_debug_image()
     with pytest.raises(NotImplementedError):
-        tslam.System(cfg, load_map="map.npz", device="cpu")
-    with pytest.raises(NotImplementedError):
-        tslam.System(cfg.replace(localization_only=True), **off)
+        tslam.System(cfg, mesh=object(), **off)
+    # the monocular and stereo sensors and localization-only mode are
+    # ported
     mono = cfg.replace(sensor=0)
-    with pytest.raises(NotImplementedError):
-        tslam.System(mono, **off)
-    with pytest.raises(NotImplementedError):
-        tlm.LocalMapper(mono)
-    # the stereo sensor is ported
+    assert tslam.System(mono, **off).mono_init is not None
+    assert tlm.LocalMapper(mono).cfg.sensor == 0
     stereo = cfg.replace(sensor=1)
     assert tslam.System(stereo, **off).tracker.cfg.sensor == 1
     assert tlm.LocalMapper(stereo).cfg.sensor == 1
+    loc = tslam.System(cfg.replace(localization_only=True), **off)
+    assert loc.localization_only and loc.relocalizer is None

@@ -127,8 +127,15 @@ def test_composed_trajectory_and_records(runs):
 
 
 def test_unported_modes_raise():
+    """The monocular sensor and localization-only mode are ported, so the
+    tracker raises for neither. Neither initializes a map by itself: a mono
+    tracker waits for the System's two-view initializer, and a
+    localization-only tracker's map stays frozen."""
     cfg = small_cfg()
-    with pytest.raises(NotImplementedError):
-        ttrack.Tracker(cfg.replace(localization_only=True), device="cpu")
-    with pytest.raises(NotImplementedError):
-        ttrack.Tracker(cfg.replace(sensor=0), device="cpu")
+    gray, depth = SyntheticRGBD(cfg, n_frames=1, seed=0)[0]
+    for c in (cfg.replace(sensor=0), cfg.replace(localization_only=True)):
+        tracker = ttrack.Tracker(c, device="cpu")
+        rec = tracker.process(gray, depth, 0.0)
+        assert rec.state == ttrack.NOT_INITIALIZED and tracker.n_kfs == 0
+    assert ttrack.Tracker(cfg.replace(sensor=0), device="cpu").chunk == 8
+    assert ttrack.Tracker(cfg, device="cpu").chunk == 16
