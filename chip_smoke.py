@@ -30,8 +30,9 @@ Phases, each reported on its own lines:
      recorded during phase 5): equality with the plain version, and times
      as in phase 4;
   7. mapping path: ``System(cfg, enable_loop_closing=False)`` (RGB-D, BA
-     window 10, the card) at the same operating point over the 224-frame
-     synthetic loop in chunks of 16: tracking plus the full local-mapping
+     window 10, the card) at the same operating point over the first 112
+     frames of the 224-frame synthetic loop (all 224 until phase 17 came
+     to pay for) in chunks of 16: tracking plus the full local-mapping
      step (triangulation, fusion, windowed BA, culling, compaction) after
      every chunk that inserted a keyframe. Every frame must be OK, the map
      on the card, the mapper executed exactly on the chunks with a
@@ -110,10 +111,29 @@ Phases, each reported on its own lines:
      tracked OK on the merged map);
  16. the vocabulary at ORBvoc scale: the complete k = 10, L = 6 tree
      (1,111,110 nodes) of ``tests/test_orbvoc_scale.py`` written in DBoW2's
-     binary format and loaded with ``load_orbvoc_binary`` onto the card,
+     binary format and loaded with ``load_orbvoc_binary`` (the native
+     reader) onto the card,
      and ``transform`` of one frame's 1,536 descriptors on the card: the
      load and the transform timed, the words equal to the CPU's and at
-     least half of them the true leaf.
+     least half of them the true leaf;
+ 17. the user's entry point on real images (built in phase 2 with the
+     kernels: the port's native host library, whose PNG decoder is
+     printed): ``run.main`` over the checked-in mini TUM sequence
+     (``tests/data/mini_tum``, 20 frames of 640x480, RGB-D, the ``tum1``
+     preset, loop closing off), the frames decoded by the native library
+     and streamed by its prefetcher in wire format, saving the TUM
+     trajectory, the keyframe trajectory and the debug image: at most 2
+     frames not OK and the ATE against ``groundtruth.txt`` below 0.05 m
+     (``tests/test_tum_e2e.py``'s bars), the saved file read back equal to
+     the composed trajectory, the debug image 640 x 500, the kernel
+     launched 4 times per frame plus 8 per mapping step. The same frames
+     decoded one by one into float images and tracked by ``System`` give
+     every record equal. Then ``run.main`` over a 64-frame synthetic orbit
+     with loop closing on (a vocabulary trained from the sequence's own
+     frames): every frame OK, the ATE below 0.05 m, the launch identity of
+     phase 9. The kernel on the four calls of frame 8 of the mini TUM
+     sequence, equal to the plain version and timed as in phase 4; the
+     decode time per frame and the CLI's frame rate with its host I/O.
 
 The frames are rendered on the host by worker processes that end before
 tracking starts. The last two lines are a JSON summary of the kernels and
@@ -122,8 +142,10 @@ Any failure raises, so the exit code is not 0. Without a CUDA device the
 script exits at once with an error and prints no result.
 """
 
+import concurrent.futures
 import json
 import os
+import struct
 import subprocess
 import sys
 import tempfile
@@ -137,10 +159,12 @@ N_KEYFRAMES = 4         # what the orbit gives at this operating point: the
 N_MAP_POINTS = 1931     # kernel is exact, so these do not move with it
 CAPTURE_FRAME = 48
 N_LOOP_FRAMES = 224
+N_MAPPING_FRAMES = 112  # phase 7's depth: the loop's first 7 chunks
 CAPTURE_STEP = 3        # the executed mapping step whose fusion calls are kept
-# composed-trajectory ATE of the mapping path, rigid alignment: 1.5 x the
-# 0.088893 m measured on an NVIDIA H100 80GB HBM3 at 700.00 W
-LOOP_ATE_LIMIT_M = 0.133
+# composed-trajectory ATE of the mapping path over its 112 frames, rigid
+# alignment: 1.5 x the 0.027044 m measured on an NVIDIA H100 80GB HBM3 at
+# 700.00 W (over all 224 frames: 0.088893 m)
+LOOP_ATE_LIMIT_M = 0.0406
 # composed-trajectory ATE of the full system (loop closing and global BA
 # on), rigid alignment: 1.5 x the 0.054178 m measured on an NVIDIA H100 80GB
 # HBM3 at 700.00 W. The JAX reference's own full-size runs give 0.0296 m on
@@ -172,6 +196,12 @@ ORBVOC_K, ORBVOC_L = 10, 6
 # the first chip run's 0.056734 m, on an NVIDIA H100 80GB HBM3 at 700.00 W
 MONO_INIT_FRAME = 2
 MONO_ATE_LIMIT_M = 0.0851
+# phase 17: the mini TUM frame whose four matcher calls are kept, the ATE
+# bar of tests/test_tum_e2e.py (also the synthetic run's), the synthetic
+# run's length
+TUM_CAPTURE_FRAME = 8
+TUM_ATE_LIMIT_M = 0.05
+CLI_SYNTHETIC_FRAMES = 64
 # (N, M, gates) beside the path's two shapes
 EDGE_CASES = ((1531, 1237, "random"), (77, 1, "random"), (64, 32767, "random"),
               (300, 500, "closed"), (257, 333, "open"))
@@ -350,7 +380,7 @@ def run_mapping_path(torch, match_kernel, timing, loop_seq):
     from orb_slam_2_ros_tpu_torch.pipeline.tracking import OK
 
     cfg, ds, grays, depths = loop_seq
-    n = N_LOOP_FRAMES
+    n = N_MAPPING_FRAMES
     system = System(cfg, enable_loop_closing=False)
     if system.device.type != "cuda":
         raise AssertionError(f"System(cfg) chose {system.device}")
@@ -1221,7 +1251,8 @@ def run_vocab_scale(torch, workdir):
     t1 = time.perf_counter()
     cfg = SlamConfig(vocab=VocabConfig(k=ORBVOC_K, levels=ORBVOC_L,
                                        levels_up=4))
-    voc = vocabulary.load_orbvoc_binary(path, cfg, device="cuda")
+    voc = vocabulary.load_orbvoc_binary(path, cfg, device="cuda",
+                                        use_native=True)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t1
     P = cfg.orb.max_kps
@@ -1247,14 +1278,121 @@ def run_vocab_scale(torch, workdir):
     transform_ms = start.elapsed_time(end) / reps
     log(f"vocabulary at ORBvoc scale: {voc.node_desc.shape[0]} nodes, "
         f"{voc.num_words} words; tree built and written in {t1 - t0:.1f} s "
-        f"({os.path.getsize(path) / 1e6:.1f} MB), loaded onto the card in "
-        f"{load_s:.2f} s; transform of {P} descriptors {transform_ms:.3f} ms "
+        f"({os.path.getsize(path) / 1e6:.1f} MB), parsed by the native "
+        f"reader and loaded onto the card in {load_s:.2f} s; transform of {P} descriptors {transform_ms:.3f} ms "
         f"(CUDA events over {reps} calls, host-bound), words equal to the "
         f"CPU's, {exact:.3f} of them the true leaf")
     if voc.node_desc.shape[0] != len(parents) or exact < 0.5:
         raise AssertionError(f"{voc.node_desc.shape[0]} nodes, exact-leaf "
                              f"rate {exact}")
     return load_s, transform_ms
+
+
+def run_cli(torch, match_kernel, bench, timing, workdir):
+    """Phase 17. Returns the kernel launches of the mini TUM run and of
+    the synthetic run, the four calls of frame ``TUM_CAPTURE_FRAME``, and
+    the decode and frame-rate numbers."""
+    from orb_slam_2_ros_tpu_torch import native, presets, run
+    from orb_slam_2_ros_tpu_torch.frontend import matcher
+    from orb_slam_2_ros_tpu_torch.io import datasets, trajectory
+    from orb_slam_2_ros_tpu_torch.pipeline.slam import System
+    from orb_slam_2_ros_tpu_torch.pipeline.tracking import OK
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "data", "mini_tum")
+    ds = datasets.TumRGBD(root)
+    t0 = time.perf_counter()
+    for rgb, dep in zip(ds.rgb_files, ds.depth_files):
+        native.decode_gray8(os.path.join(root, rgb))
+        native.decode_depth_mm(os.path.join(root, dep), ds.depth_factor)
+    decode_ms = (time.perf_counter() - t0) * 1e3 / len(ds)
+    card = command_output(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"])
+    log(f"cli: native decoder: {native.DECODER}; {decode_ms:.3f} ms per "
+        f"frame (gray and depth PNG, 640x480, host); card {card}")
+
+    out = {k: os.path.join(workdir, f"cli_{k}") for k in
+           ("traj.txt", "kf_traj.txt", "debug.png")}
+    match_kernel.LAUNCHES = 0
+    with timing.capture_calls(matcher, "masked_best_two") as calls:
+        res = run.main(["--dataset", "tum", "--path", root,
+                        "--no-loop-closing", "--save-traj", out["traj.txt"],
+                        "--save-kf-traj", out["kf_traj.txt"],
+                        "--save-debug-image", out["debug.png"]])
+    tum_launches = match_kernel.LAUNCHES
+    system, n = res["system"], res["frames"]
+    tum_fps = res["fps"]
+    f = TUM_CAPTURE_FRAME
+    tum_args = [(label.replace("path:", f"mini TUM frame {f}:"), a)
+                for label, a in bench.label_path_calls(calls[4 * f:4 * f + 4])]
+    steps = system.mapper.n_executed
+    ts, poses = trajectory.read_tum(out["traj.txt"])
+    want, want_ts = system.tracker.composed_trajectory()
+    with open(out["debug.png"], "rb") as fh:
+        width, height = struct.unpack(">II", fh.read(24)[16:24])
+    log(f"cli: mini TUM through run.main: {res['ok']}/{n} frames OK, ATE "
+        f"{res['ate_dataset_m']:.6f} m against groundtruth.txt (limit "
+        f"{TUM_ATE_LIMIT_M} m), {system.tracker.n_kfs} keyframes, {steps} "
+        f"mapping steps, {tum_launches} matcher kernel launches, "
+        f"{res['fps']:.2f} fps with the host I/O ({res['seconds']:.2f} s), "
+        f"debug image {width}x{height}")
+    if system.device.type != "cuda":
+        raise AssertionError(f"run.main chose {system.device}")
+    if res["ok"] < n - 2 or n != 20:
+        raise AssertionError(f"{res['ok']} of {n} mini TUM frames OK")
+    if not res["ate_dataset_m"] < TUM_ATE_LIMIT_M:
+        raise AssertionError(f"mini TUM ATE {res['ate_dataset_m']} m")
+    if (len(ts) != len(want_ts)
+            or np.abs(np.asarray(ts) - want_ts).max() > 1e-6
+            or max(np.abs(c - wc).max() for (_, c), (_, wc)
+                   in zip(poses, want)) > 1e-6):
+        raise AssertionError("the saved trajectory is not the composed one")
+    if (width, height) != (640, 500):
+        raise AssertionError(f"debug image {width}x{height}, not 640x500")
+    if tum_launches != 4 * n + 8 * steps:
+        raise AssertionError(f"matcher kernel launched {tum_launches} times, "
+                             f"the path makes {4 * n} + {8 * steps}")
+
+    # the same frames decoded one by one into float images
+    indexed = System(presets.get("tum1"), enable_loop_closing=False)
+    indexed.track_chunk(np.stack([ds[i][0] for i in range(n)]),
+                        np.stack([ds[i][1] for i in range(n)]),
+                        ds.timestamps)
+    differ = [i for i, (a, b) in enumerate(zip(indexed.records,
+                                               system.records))
+              if a.state != b.state or not np.array_equal(a.c_w, b.c_w)
+              or not np.array_equal(a.R_wc, b.R_wc)]
+    log(f"cli: the indexed float decode of the same frames: "
+        f"{len(indexed.records)} records, {len(differ)} differ from the "
+        f"prefetcher's wire-format run")
+    if differ or len(indexed.records) != n:
+        raise AssertionError(f"records differ at frames {differ}")
+
+    match_kernel.LAUNCHES = 0
+    res = run.main(["--dataset", "synthetic", "--frames",
+                    str(CLI_SYNTHETIC_FRAMES), "--render-workers",
+                    str(RENDER_WORKERS)])
+    synth_launches = match_kernel.LAUNCHES
+    system = res["system"]
+    lc = system.loop_closer
+    # every frame OK: no relocalization attempt and no replay
+    expected = (4 * res["frames"] + 8 * system.mapper.n_executed
+                + 3 * lc.n_ladders + 9 * lc.n_corrections)
+    log(f"cli: synthetic orbit through run.main, loop closing on: "
+        f"{res['ok']}/{res['frames']} frames OK, ATE {res['ate_m']:.6f} m "
+        f"(limit {TUM_ATE_LIMIT_M} m), {lc.n_loops_closed} loops, "
+        f"{system.mapper.n_executed} mapping steps, {synth_launches} matcher "
+        f"kernel launches, {res['fps']:.2f} fps")
+    if res["ok"] != CLI_SYNTHETIC_FRAMES:
+        raise AssertionError(f"{res['ok']} of {CLI_SYNTHETIC_FRAMES} OK")
+    if not res["ate_m"] < TUM_ATE_LIMIT_M:
+        raise AssertionError(f"synthetic ATE {res['ate_m']} m")
+    if synth_launches != expected:
+        raise AssertionError(f"matcher kernel launched {synth_launches} "
+                             f"times, the path makes {expected}")
+    return tum_launches, synth_launches, tum_args, {
+        "decode_ms_per_frame": decode_ms, "tum_fps_with_host_io": tum_fps,
+        "synthetic_fps_with_host_io": res["fps"]}
 
 
 def check_and_time(torch, match_kernel, bench, timing, cases, floor, err,
@@ -1290,10 +1428,17 @@ def main():
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"nvcc {nvcc_ver}, device {torch.cuda.get_device_name(0)}")
 
-    # 2. build
+    # 2. build: the kernel with nvcc and the native host library with g++,
+    # both started together
+    from orb_slam_2_ros_tpu_torch import native
     t0 = time.perf_counter()
-    lib = _build.build("masked_best_two")
-    log(f"built {os.path.relpath(lib)} in {time.perf_counter() - t0:.2f} s")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        built = [pool.submit(_build.build, "masked_best_two"),
+                 pool.submit(native.build)]
+        lib, native_lib = (b.result() for b in built)
+    log(f"built {os.path.relpath(lib)} and {os.path.relpath(native_lib)} in "
+        f"{time.perf_counter() - t0:.2f} s (the native library's PNG "
+        f"decoder: {native.DECODER})")
 
     # 3. kernel check
     err, shape_cases = check_kernel(torch, match_kernel, bench)
@@ -1379,6 +1524,13 @@ def main():
                              floor, err, timed)
         vocab_load_s, vocab_transform_ms = run_vocab_scale(torch, workdir)
 
+        # 17. the CLI on the mini TUM sequence and on a synthetic orbit,
+        # then the kernel on one real frame's four calls
+        tum_launches, cli_synth_launches, tum_args, cli = run_cli(
+            torch, match_kernel, bench, timing, workdir)
+        err = check_and_time(torch, match_kernel, bench, timing, tum_args,
+                             floor, err, timed)
+
     log(f"matcher kernel launches: {launches} on the tracking path, "
         f"{map_launches} on the mapping path, {full_launches} on the full "
         f"system's path ({lc_launches} of them by loop closing), "
@@ -1386,7 +1538,8 @@ def main():
         f"({sum(reloc_launches)} by relocalization), {stereo_launches} on "
         f"the stereo paths, {stereo_loss_launches} on the stereo forced "
         f"loss, {mono_launches} on the mono path, {loc_launches} on the "
-        f"localization path")
+        f"localization path, {tum_launches} on the CLI's mini TUM run, "
+        f"{cli_synth_launches} on the CLI's synthetic run")
     by_path = {"tracking": launches, "mapping": map_launches,
                "full_system": full_launches,
                "loop_closing_within_full_system": lc_launches,
@@ -1396,10 +1549,12 @@ def main():
                "stereo_relocalization": stereo_loss_launches,
                "stereo_relocalization_attempts": stereo_attempts,
                "mono": mono_launches, "localization": loc_launches,
-               "localization_relocalization_attempts": loc_attempts}
+               "localization_relocalization_attempts": loc_attempts,
+               "cli_mini_tum": tum_launches,
+               "cli_synthetic": cli_synth_launches}
     launches += (map_launches + full_launches + reloc_path_launches
                  + stereo_launches + stereo_loss_launches + mono_launches
-                 + loc_launches)
+                 + loc_launches + tum_launches + cli_synth_launches)
 
     # the headline numbers are the local-map search's, the largest call of
     # a frame: random gates at its shape; "cases" holds every case
@@ -1420,7 +1575,7 @@ def main():
                                       "failed": reloc_fail_ms},
         "mono_init_s": mono_init_s, "merge": merge,
         "orbvoc_load_s": vocab_load_s,
-        "orbvoc_transform_ms": vocab_transform_ms,
+        "orbvoc_transform_ms": vocab_transform_ms, "cli": cli,
         "cases": timed}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

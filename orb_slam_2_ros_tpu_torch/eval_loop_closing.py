@@ -2,6 +2,7 @@
 own full-size numbers.
 
     python -m orb_slam_2_ros_tpu_torch.eval_loop_closing [--skip-hard]
+    python -m orb_slam_2_ros_tpu_torch.eval_loop_closing --hard-only
 
 Two sequences at the reference operating point on ``cuda``, each through
 ``System(cfg, vocab=voc)`` with all defaults, in chunks of 16, then
@@ -19,7 +20,14 @@ descriptors of every 24th frame of the loop and serves both sequences. For
 each pass: frames tracked, loops closed, Sim3 ladders run, global BAs
 finished, rejected and aborted, the ATE (rigid alignment) composed through
 the keyframes' final poses and as tracked, the counts of the map, the host
-seconds per stage, and each ladder's and each global BA's outcome. The JAX
+seconds per stage, and each ladder's and each global BA's outcome. The hard pass also logs every
+chunk and the flush (``chunk_log``): frames OK so far, keyframe rows, valid
+keyframes and map points, the verdict dispatched (``[cand, k]``, the
+candidate and the query keyframe row, ``-1`` for none), every verdict
+consumed, each ladder's pair, outcome and inlier count, and the running
+counts of ladders, loops closed and global BAs started, finished, rejected
+and aborted; ``tools/reference_passes.py hard`` logs the same fields for
+the JAX package. ``--hard-only`` runs the hard pass alone. The JAX
 package's own runs are printed beside them (counts and ATE, taken with
 other backends, so no time is compared): both sequences from its TPU bench
 (``BENCH_r05.json``), and the loop from a run on a CPU (the same pass, no
@@ -60,16 +68,69 @@ COUNTS = ("ok_frames", "loops_closed", "ladders", "gba_finished",
           "n_mps", "points_culled", "mapping_steps")
 
 
-def run_pass(name, cfg, voc, ds, grays, depths):
+def chunk_logger(system):
+    """Record every verdict the closer dispatches and consumes; returns
+    ``line(label)``, which gives one chunk's log entry and starts the
+    next. Reads nothing the run would not read, apart from the dispatched
+    verdict and the map's counts after the chunk."""
+    lc = system.loop_closer
+    cur = {"consumed": []}
+    seen = {"events": 0}
+    dispatch, consume_host = lc.dispatch, lc.consume_host
+
+    def dispatched(*args):
+        dispatch(*args)
+        cur["dispatched"] = lc._pending_verdict[-1].tolist()
+
+    def consumed(m, cand, k):
+        cur["consumed"].append([cand, k])
+        return consume_host(m, cand, k)
+
+    lc.dispatch, lc.consume_host = dispatched, consumed
+
+    def line(label):
+        m = system.tracker.carry.m
+        ladders = [[e["cand"], e["k"], e["accepted"], e["n_inl"]]
+                   for e in lc.events[seen["events"]:]
+                   if e["kind"] == "ladder"]
+        seen["events"] = len(lc.events)
+        out = {"chunk": label,
+               "ok": sum(r.state == OK for r in system.records),
+               "keyframe_rows": int(m.n_kfs),
+               "keyframes_valid": int(m.kf_valid.sum()),
+               "map_points": int(m.n_mps),
+               "dispatched": cur.get("dispatched"),
+               "consumed": cur["consumed"], "ladder_runs": ladders,
+               "ladders": lc.n_ladders, "loops_closed": lc.n_loops_closed,
+               "gba_started": lc.n_corrections,
+               "gba_finished": lc.n_gba_finished,
+               "gba_rejected": lc.n_gba_rejected,
+               "gba_aborts": lc.n_gba_aborts,
+               "gba_running": lc.gba_running}
+        cur.clear()
+        cur["consumed"] = []
+        return out
+    return line
+
+
+def run_pass(name, cfg, voc, ds, grays, depths, log_chunks=False):
     n = len(grays)
     system = System(cfg, vocab=voc)
     C = system.tracker.CHUNK
+    line = chunk_logger(system) if log_chunks else None
+    chunks = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for w0 in range(0, n, C):
         system.track_chunk(grays[w0:w0 + C], depths[w0:w0 + C],
                            ds.timestamps[w0:w0 + C])
+        if line:
+            chunks.append(line(w0 // C))
+            print(json.dumps(chunks[-1]), flush=True)
     system.flush()
+    if line:
+        chunks.append(line("flush"))
+        print(json.dumps(chunks[-1]), flush=True)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     recs = system.records
@@ -97,6 +158,8 @@ def run_pass(name, cfg, voc, ds, grays, depths):
         "stage_ms": {s: v["total_ms"]
                      for s, v in system.metrics()["stages"].items()},
         "events": lc.events}
+    if log_chunks:
+        out["chunks"] = chunks
     print(json.dumps(out), flush=True)
     return out
 
@@ -116,18 +179,21 @@ def main():
         grays, VOCAB_EVERY, cfg, seed=0, device="cuda")
     print(f"vocabulary of {voc.num_words} words trained in "
           f"{time.perf_counter() - t0:.1f} s on the host", flush=True)
-    passes = [run_pass("loop, first run", cfg, voc, ds, grays, depths),
-              run_pass("loop, second run", cfg, voc, ds, grays, depths)]
-    differ = [k for k in COUNTS + ("ate_composed_m",)
-              if passes[0][k] != passes[1][k]]
-    if differ:
-        raise AssertionError(f"two runs of the system differ in {differ}")
-    if "--skip-hard" not in sys.argv[1:]:
+    args = sys.argv[1:]
+    passes = []
+    if "--hard-only" not in args:
+        passes = [run_pass("loop, first run", cfg, voc, ds, grays, depths),
+                  run_pass("loop, second run", cfg, voc, ds, grays, depths)]
+        differ = [k for k in COUNTS + ("ate_composed_m",)
+                  if passes[0][k] != passes[1][k]]
+        if differ:
+            raise AssertionError(f"two runs of the system differ in {differ}")
+    if "--skip-hard" not in args:
         ds_h, grays_h, depths_h = render_frames(
             cfg, N_HARD, workers=6, seed=0, trajectory="twoloop",
             exposure_drift=0.25)
         passes.append(run_pass("hard pass", cfg, voc, ds_h, grays_h,
-                               depths_h))
+                               depths_h, log_chunks=True))
     result = {"card": smi, "passes": passes,
               "loop_runs_agree_in": list(COUNTS) + ["ate_composed_m"],
               "reference": REFERENCE}

@@ -44,8 +44,15 @@ The reference builds them as RGB-D with the right image as the depth map
 (``slam.py:512-518``), a fault of its own; this is a deliberate divergence
 (``tests/test_torch_stereo.py``).
 
-Not ported yet (Slice 7b), each raising ``NotImplementedError``: the
-trajectory savers, the debug image, and ``mesh=`` (Slice 8).
+``track_chunk`` takes float images or the wire format of the native
+prefetcher (``io/datasets.make_prefetcher``: u8 gray, u16 millimetre depth
+or a u8 right image), told apart by the gray images' dtype as in the
+reference; both give the same records. The savers write the composed
+trajectory in the TUM or KITTI format (``io/trajectory.py``),
+``render_debug_image`` draws the last frame (``pipeline/frame_drawer.py``)
+and ``map_points`` returns the valid points.
+
+Not ported yet: ``mesh=`` (Slice 8), which raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -59,8 +66,9 @@ from orb_slam_2_ros_tpu_torch import convert
 from orb_slam_2_ros_tpu_torch.config import (SENSOR_MONOCULAR, SENSOR_STEREO,
                                              SlamConfig)
 from orb_slam_2_ros_tpu_torch.frontend import frame as frame_mod
+from orb_slam_2_ros_tpu_torch.io import trajectory
 from orb_slam_2_ros_tpu_torch.map import state as map_state
-from orb_slam_2_ros_tpu_torch.pipeline import map_merge
+from orb_slam_2_ros_tpu_torch.pipeline import frame_drawer, map_merge
 from orb_slam_2_ros_tpu_torch.pipeline.local_mapping import LocalMapper
 from orb_slam_2_ros_tpu_torch.pipeline.loop_closing import (LoopCloser,
                                                             LoopState)
@@ -70,7 +78,7 @@ from orb_slam_2_ros_tpu_torch.pipeline.relocalization import Relocalizer
 from orb_slam_2_ros_tpu_torch.place import database, vocabulary
 from orb_slam_2_ros_tpu_torch.pipeline.tracking import (
     LOST, NOT_INITIALIZED, OK, FrameRecord, Tracker, _quat_mul_np,
-    _quat_rotate_np)
+    _quat_rotate_np, _quat_to_R)
 
 
 
@@ -195,7 +203,10 @@ class System:
                     timestamps=None) -> List[FrameRecord]:
         """Track a batch of frames, grays/depths (N, H, W) float images:
         depth maps in metres (RGB-D), the right images (stereo) or None
-        (mono). A monocular system not yet initialized first feeds the
+        (mono). u8 gray images mean the wire format instead (u16
+        millimetre depth or a u8 right image, as the native prefetcher
+        delivers them), detected by dtype as in the reference
+        (``slam.py:171-190``). A monocular system not yet initialized first feeds the
         frames to the two-view initializer, one at a time. Then per
         tracker chunk: track, one mapping step, loop closing, then
         relocalization of the chunk's LOST frames. The mapping step runs
@@ -203,9 +214,12 @@ class System:
         wait for the loop closer, is decided from the keyframe count that
         the chunk's own records carry (``ref_kf`` of the last frame), so
         neither gate reads anything more from the device."""
-        grays = np.asarray(grays, np.float32)
-        if depths is not None:
-            depths = np.asarray(depths, np.float32)
+        grays = np.asarray(grays)
+        wire = grays.dtype == np.uint8
+        if not wire:
+            grays = grays.astype(np.float32)
+            if depths is not None:
+                depths = np.asarray(depths, np.float32)
         if self._vocab_pending:
             self._bootstrap_vocabulary(grays)
         if timestamps is None:
@@ -216,7 +230,8 @@ class System:
         if not self._mono_initialized:
             consumed = 0
             for i in range(len(grays)):
-                out = self.mono_init.process(grays[i], self._frame_counter + i)
+                out = self.mono_init.process(grays[i].astype(np.float32),
+                                             self._frame_counter + i)
                 consumed = i + 1
                 if out is not None:
                     self._adopt_mono_init(*out, consumed, init_recs,
@@ -243,7 +258,7 @@ class System:
             carry_before = self.tracker.carry
             with self.timers.time("tracking"):
                 chunk = self.tracker.process_chunk(grays[w0:w1], d,
-                                                   timestamps[w0:w1])
+                                                   timestamps[w0:w1], wire)
             n_kfs = chunk[-1].ref_kf + 1
             # point ids stay frozen while a global BA holds a snapshot
             gba_running = lc is not None and lc.gba_running
@@ -289,7 +304,7 @@ class System:
                             chunk = self._replay_chunk(
                                 carry_before, grays[w0:w1], d,
                                 timestamps[w0:w1], int(f), q, t, kp_mp,
-                                frame)
+                                frame, wire)
                             break
                 # lost with a barely started map: start over
                 # (Tracking.cc:508-516, min_num_kf_in_map)
@@ -348,11 +363,14 @@ class System:
 
     def _to_float_frame(self, gray, aux):
         """One frame's float images (host arrays; ``aux`` None for mono)
-        as tensors on the device."""
+        as tensors on the device; a wire-format u16 millimetre depth map
+        becomes metres."""
         def dev(a):
             if a is None:
                 return None
             return torch.from_numpy(np.asarray(a, np.float32)).to(self.device)
+        if aux is not None and aux.dtype == np.uint16:
+            aux = aux.astype(np.float32) * np.float32(1e-3)
         return dev(gray), dev(aux)
 
     def _attempt_reloc(self, gray: torch.Tensor, aux: torch.Tensor):
@@ -394,7 +412,8 @@ class System:
         return ok
 
     def _replay_chunk(self, carry_before, grays, depths, timestamps, f: int,
-                      q, t, kp_mp, frame) -> List[FrameRecord]:
+                      q, t, kp_mp, frame, wire: bool = False
+                      ) -> List[FrameRecord]:
         """Replay the chunk around a relocalization at its frame ``f``
         (per-frame relocalization, ``Tracking.cc:341-346``): take the
         chunk's records back out, restore the carry from before the chunk,
@@ -411,12 +430,14 @@ class System:
         self.tracker.carry = carry_before
         recs = []
         if f > 0:
-            recs += self.tracker.process_chunk(grays[:f], depths[:f],
-                                               timestamps[:f])
+            recs += self.tracker.process_chunk(
+                grays[:f], None if depths is None else depths[:f],
+                timestamps[:f], wire)
         self.tracker.force_pose(q, t, kp_mp, frame.kps.octave,
                                 frame.kps.angle)
-        recs += self.tracker.process_chunk(grays[f:], depths[f:],
-                                           timestamps[f:])
+        recs += self.tracker.process_chunk(
+            grays[f:], None if depths is None else depths[f:],
+            timestamps[f:], wire)
         return recs
 
     def compact_keyframe_pool(self) -> int:
@@ -636,16 +657,84 @@ class System:
                 else getattr(empty, f))
             for f in map_state.MapState._fields})
 
-    # ---------------------------------------------------- not ported (7b)
+    # --------------------------------------------------------- trajectories
 
     def save_trajectory_tum(self, path: str):
-        raise NotImplementedError("the trajectory savers come with Slice 7b")
+        """Every OK frame's pose composed through its reference keyframe,
+        so it carries every BA and loop correction since
+        (``System::SaveTrajectoryTUM``, ``System.cc:343-401``)."""
+        poses, ts = self.tracker.composed_trajectory(skip_lost=True)
+        trajectory.write_tum(path, ts, poses)
 
     def save_keyframe_trajectory_tum(self, path: str):
-        raise NotImplementedError("the trajectory savers come with Slice 7b")
+        """The valid keyframes' poses, each with its frame's timestamp
+        (``System::SaveKeyFrameTrajectoryTUM``, ``System.cc:404-438``)."""
+        m = self.tracker.map
+        n = int(m.n_kfs)
+        valid = m.kf_valid[:n].cpu().numpy()
+        kf_q = m.kf_q[:n].cpu().numpy()[valid]
+        kf_t = m.kf_t[:n].cpu().numpy()[valid]
+        fids = m.kf_frame_id[:n].cpu().numpy()[valid]
+        recs = self.tracker.records
+        poses, ts = [], []
+        for q, t, fid in zip(kf_q, kf_t, fids):
+            R_cw = _quat_to_R(*q)
+            poses.append((R_cw.T, -R_cw.T @ t))
+            ts.append(recs[fid].timestamp if 0 <= fid < len(recs) else 0.0)
+        trajectory.write_tum(path, ts, poses)
 
     def save_trajectory_kitti(self, path: str):
-        raise NotImplementedError("the trajectory savers come with Slice 7b")
+        """Composed like the TUM saver but keeping every frame
+        (``System::SaveTrajectoryKITTI``, ``System.cc:441-494``, does not
+        gate on ``mbLost``)."""
+        poses, _ = self.tracker.composed_trajectory(skip_lost=False)
+        trajectory.write_kitti(path, poses)
+
+    # -------------------------------------------------------------- getters
 
     def render_debug_image(self):
-        raise NotImplementedError("the debug image comes with Slice 7b")
+        """The last frame with its keypoint overlays and the status bar
+        (the ``FrameDrawer`` and ``PublishRenderedImage`` path,
+        ``ros/src/Node.cc:200-206``): (H + 20, W, 3) uint8 BGR, or None
+        before the first tracked chunk."""
+        if self._last_frame_inputs is None:
+            return None
+        gray, aux = self._to_float_frame(*self._last_frame_inputs)
+        if self.cfg.sensor == SENSOR_MONOCULAR:
+            frame = frame_mod.build_mono(gray, self.cfg)
+        elif self.cfg.sensor == SENSOR_STEREO:
+            frame = frame_mod.build_stereo(gray, aux, self.cfg)
+        else:
+            frame = frame_mod.build_rgbd(gray, aux, self.cfg)
+        carry = self.tracker.carry
+        # while a monocular map initializes: the reference keypoints and
+        # the current match vector, drawn as match lines
+        init_ref_xy = init_matches = None
+        mi = self.mono_init
+        if (not self._mono_initialized and mi is not None
+                and mi.ref is not None and mi.last_matches is not None):
+            init_ref_xy = mi.ref.uv.cpu().numpy()
+            init_matches = mi.last_matches.cpu().numpy()
+        rec = self.records[-1] if self.records else None
+        m = self.tracker.map
+        return frame_drawer.draw_frame(
+            gray.cpu().numpy(), frame.kps.xy.cpu().numpy(),
+            frame.valid.cpu().numpy(), (carry.last_mp >= 0).cpu().numpy(),
+            state=self.tracker.state,
+            n_matches=rec.n_inliers if rec else 0,
+            n_kfs=int(m.n_kfs), n_mps=int(m.mp_valid.sum()),
+            localization_only=self.localization_only,
+            kp_has_vo=carry.last_vo.cpu().numpy(),
+            init_ref_xy=init_ref_xy, init_matches=init_matches)
+
+    def map_points(self, min_observations: int = 0) -> np.ndarray:
+        """(N, 3) valid map-point positions (the PointCloud2 of
+        ``ros/src/Node.cc:244-289``); ``min_observations`` drops points
+        seen by fewer keyframes, as ``min_observations_for_ros_map``
+        does (``ros/src/Node.cc:277-286``)."""
+        m = self.tracker.map
+        valid = m.mp_valid
+        if min_observations > 0:
+            valid = valid & (map_state.observation_count(m)
+                             >= min_observations)
+        return m.mp_pos[valid].cpu().numpy()

@@ -431,13 +431,16 @@ class Tracker:
         return grays8, aux_w
 
     def process_chunk(self, grays: np.ndarray, depths: np.ndarray,
-                      timestamps) -> List[FrameRecord]:
+                      timestamps, wire: bool = False) -> List[FrameRecord]:
         """Track a batch of frames, grays/depths (N, H, W) float images:
         depth in metres (RGB-D) or the right image (stereo); mono ignores
-        ``depths`` (None). The frame loop never waits for the device; the
-        records are fetched once at the end (``flush``)."""
+        ``depths`` (None). With ``wire`` the arrays are already in the wire
+        format of ``to_wire`` (the native prefetcher's output). The frame
+        loop never waits for the device; the records are fetched once at
+        the end (``flush``)."""
         self._last_chunk = len(self.records)
-        grays, depths = self.to_wire(grays, depths)
+        if not wire:
+            grays, depths = self.to_wire(grays, depths)
         n = grays.shape[0]
         for w0 in range(0, n, self.CHUNK):
             w1 = min(w0 + self.CHUNK, n)
@@ -529,18 +532,20 @@ class Tracker:
         return [(r.R_wc, r.c_w) for r in self.records], \
                [r.timestamp for r in self.records]
 
-    def composed_trajectory(self):
-        """Per-frame camera-to-world poses of the OK frames, composed
-        through each frame's reference keyframe, ``T_cw = T_cr *
-        T_rw(current)`` (``System::SaveTrajectoryTUM``). Returns (poses
-        [(R_wc, c_w)], timestamps)."""
+    def composed_trajectory(self, skip_lost: bool = True):
+        """Per-frame camera-to-world poses composed through each frame's
+        reference keyframe, ``T_cw = T_cr * T_rw(current)``
+        (``System::SaveTrajectoryTUM``): the frames that are not OK are
+        left out when ``skip_lost`` (the reference's ``mbLost`` gate); the
+        KITTI saver keeps them. Returns (poses [(R_wc, c_w)],
+        timestamps)."""
         kf_q = self.carry.m.kf_q.cpu().numpy()
         kf_t = self.carry.m.kf_t.cpu().numpy()
         poses, ts = [], []
         for r in self.records:
             if r.ref_kf is None or r.ref_kf < 0 or r.q_cr is None:
                 continue
-            if r.state != OK:
+            if skip_lost and r.state != OK:
                 continue
             q_cw = _quat_mul_np(r.q_cr, kf_q[r.ref_kf])
             t_cw = _quat_rotate_np(r.q_cr, kf_t[r.ref_kf]) + r.t_cr

@@ -16,11 +16,12 @@ reference's uint32 bits.
 Vocabulary files: DBoW2's binary format (``load_orbvoc_binary``; the text
 format too through ``load_orbvoc``, which writes the binary file beside a
 text one, as ``System.cc:68-88`` does) and the npz layout of the
-reference (``save_npz`` / ``load_npz``). Only the reference's pure-Python
-readers are ported: its native C++ reader (``native/vocab_loader.cc``)
-comes with Slice 7b, and nothing here looks for it. The binary reader is
-numpy over the packed 45-byte records; the text reader parses one node
-per line in Python, which at ORBvoc scale takes minutes, so convert once.
+reference (``save_npz`` / ``load_npz``). The files are parsed by the
+port's native C++ reader (``native/vocab_loader.cc``) or by this module's
+Python readers: ``use_native`` chooses, and without it the native reader
+runs when its library is already built (``native.is_built``). The Python
+binary reader is numpy over the packed 45-byte records; the Python text
+reader parses one node per line, which at ORBvoc scale takes minutes.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from orb_slam_2_ros_tpu_torch import native
 from orb_slam_2_ros_tpu_torch.config import SlamConfig
 from orb_slam_2_ros_tpu_torch.frontend import extractor
 from orb_slam_2_ros_tpu_torch.ops.hamming import popcount
@@ -313,25 +315,34 @@ def write_orbvoc_bin(path: str, k: int, L: int, parents, is_leaf, descs,
         f.write(rec.tobytes())
 
 
+def _parser(use_native):
+    """The native reader and writer or the Python ones: ``use_native``, or
+    without it whether the native library is built."""
+    if use_native is None:
+        use_native = native.is_built()
+    if use_native:
+        return native.parse_orbvoc, native.write_orbvoc_bin
+    return (lambda path: _parse_txt_py(path) if path.endswith(".txt")
+            else _parse_bin_py(path)), write_orbvoc_bin
+
+
 def load_orbvoc(path: str, cfg: SlamConfig, auto_convert: bool = True, *,
-                device) -> Vocabulary:
+                device, use_native: bool = None) -> Vocabulary:
     """Load a DBoW2 vocabulary, binary (``.bin``) or text (``.txt``),
     replicating ``System.cc:68-88``: a text vocabulary is parsed once and
     re-saved beside it in the binary format (``auto_convert``), so later
     loads take the binary path (``README.md:12``)."""
-    if path.endswith(".txt"):
-        k, L, parents, is_leaf, descs, weights = _parse_txt_py(path)
-        if auto_convert:
-            write_orbvoc_bin(path[:-4] + ".bin", k, L, parents, is_leaf,
-                             descs, weights)
-    else:
-        k, L, parents, is_leaf, descs, weights = _parse_bin_py(path)
+    parse, write = _parser(use_native)
+    k, L, parents, is_leaf, descs, weights = parse(path)
+    if path.endswith(".txt") and auto_convert:
+        write(path[:-4] + ".bin", k, L, parents, is_leaf, descs, weights)
     return _relayout(k, L, parents, descs, weights, cfg, device)
 
 
-def load_orbvoc_binary(path: str, cfg: SlamConfig, *, device) -> Vocabulary:
+def load_orbvoc_binary(path: str, cfg: SlamConfig, *, device,
+                       use_native: bool = None) -> Vocabulary:
     """Binary-format loader (``TemplatedVocabulary.h:1473-1546``)."""
-    k, L, parents, _, descs, weights = _parse_bin_py(path)
+    k, L, parents, _, descs, weights = _parser(use_native)[0](path)
     return _relayout(k, L, parents, descs, weights, cfg, device)
 
 

@@ -35,7 +35,9 @@ def test_port_imports_no_jax():
                 "pipeline.loop_closing", "pipeline.metrics",
                 "eval_loop_closing", "solvers.pnp", "pipeline.relocalization",
                 "frontend.stereo", "solvers.initializer",
-                "pipeline.mono_init", "pipeline.map_merge"):
+                "pipeline.mono_init", "pipeline.map_merge", "run",
+                "presets", "io.datasets", "io.trajectory", "geometry.rectify",
+                "native", "pipeline.frame_drawer"):
         assert f"{pkg}.{new}" in mods, new
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -293,3 +295,61 @@ def test_float_sums_with_duplicate_targets_do_not_depend_on_the_order():
 
     a, b = _permuted_twice(gba, Kk)
     np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5)
+
+
+def test_run_main_defaults_to_the_card_and_raises_without_one(monkeypatch):
+    """``run.main`` without ``--device`` means the card: without one it
+    raises before it reads or builds anything."""
+    from orb_slam_2_ros_tpu_torch import run
+    from orb_slam_2_ros_tpu_torch.io import datasets
+
+    built = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(datasets.TumRGBD, "__init__",
+                        lambda *a, **k: built.append(a) or 1 / 0)
+    for argv in (["--dataset", "synthetic", "--frames", "4"],
+                 ["--dataset", "tum", "--path", "tests/data/mini_tum"]):
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            run.main(argv)
+    assert run.build_parser().parse_args([]).device == "cuda"
+    assert not built
+
+
+def test_a_failed_native_build_raises(tmp_path, monkeypatch):
+    """No fallback: a compiler that fails, or none at all, raises with the
+    compiler's output, and nothing is left in the build directory."""
+    from orb_slam_2_ros_tpu_torch import native
+
+    monkeypatch.setenv("CXX", "false")
+    with pytest.raises(RuntimeError, match="failed to build"):
+        native.build(str(tmp_path / "a"))
+    assert os.listdir(tmp_path / "a") == []
+    monkeypatch.delenv("CXX")
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(RuntimeError, match="no C\\+\\+ compiler"):
+        native.build(str(tmp_path / "b"))
+    assert not native.is_built(str(tmp_path / "b"))
+
+
+def test_drawing_and_decoding_import_no_opencv(tmp_path):
+    """The debug image, the PNG writer, the native decoder and the dataset
+    loaders run in a fresh interpreter without OpenCV or PIL."""
+    png = str(tmp_path / "x.png")
+    code = (
+        "import sys, numpy as np\n"
+        "from orb_slam_2_ros_tpu_torch import native, run\n"
+        "from orb_slam_2_ros_tpu_torch.io import datasets\n"
+        "from orb_slam_2_ros_tpu_torch.pipeline import frame_drawer\n"
+        "img = frame_drawer.draw_frame(np.zeros((40, 50)), "
+        "np.array([[10.0, 10.0]]), np.array([True]), np.array([True]), 2, 1)\n"
+        f"frame_drawer.write_png({png!r}, img)\n"
+        f"g = native.decode_gray8({png!r})\n"
+        "assert g.shape == (60, 50)\n"
+        "ds = datasets.TumRGBD('tests/data/mini_tum')\n"
+        "assert ds[0][0].shape == (480, 640)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('cv2', 'PIL'))\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr

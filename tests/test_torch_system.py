@@ -243,20 +243,22 @@ def test_reset_and_single_frame(seq):
     assert len(system.records) == 5
 
 
-def test_unported_modes_raise(seq):
+def test_unported_modes_raise(seq, tmp_path):
     """Mono, localization-only and map loading are ported (Slices 6 and
-    7a); what still raises is Slice 7b's (the trajectory savers, the debug
-    image) and Slice 8's (``mesh=``)."""
+    7a), the trajectory savers and the debug image too (Slice 7b); what
+    still raises is Slice 8's ``mesh=``. Before any frame the savers write
+    empty files and there is no debug image."""
     cfg = seq["tcfg"]
     off = dict(enable_loop_closing=False, device="cpu")
     system = tslam.System(cfg, **off)
     for saver in (system.save_trajectory_tum,
                   system.save_keyframe_trajectory_tum,
                   system.save_trajectory_kitti):
-        with pytest.raises(NotImplementedError):
-            saver("trajectory.txt")
-    with pytest.raises(NotImplementedError):
-        system.render_debug_image()
+        path = tmp_path / f"{saver.__name__}.txt"
+        saver(str(path))
+        assert path.read_text() == ""
+    assert system.render_debug_image() is None
+    assert system.map_points().shape == (0, 3)
     with pytest.raises(NotImplementedError):
         tslam.System(cfg, mesh=object(), **off)
     # the monocular and stereo sensors and localization-only mode are
