@@ -133,7 +133,28 @@ Phases, each reported on its own lines:
      frames): every frame OK, the ATE below 0.05 m, the launch identity of
      phase 9. The kernel on the four calls of frame 8 of the mini TUM
      sequence, equal to the plain version and timed as in phase 4; the
-     decode time per frame and the CLI's frame rate with its host I/O.
+     decode time per frame and the CLI's frame rate with its host I/O;
+ 18. the distributed back end on the card (``parallel/``): a world of 1
+     rank on NCCL, joined by ``multihost.initialize`` over a
+     ``tcp://127.0.0.1`` store. The reference's multi-chip dry run: the
+     pose LM with its 16 edges split over the ``mp`` axis (error below
+     1e-3, every edge an inlier), the edge-split BA on 4 cameras with one
+     free (equal to ``bundle_adjustment`` on the card within 1e-5), and the
+     point-and-edge-split GBA chunk on a 65,536-edge, 8,192-point problem
+     at 20 CG iterations: ms per LM iteration (host clock around
+     synchronized chunks) and the kernel launches of one LM iteration
+     (``torch.profiler``). Then ``System(cfg, vocab=voc,
+     mesh=global_mesh())`` over phase 9's loop: the mapper's BA through
+     ``distributed_windowed_ba`` and the loop GBA through
+     ``distributed_gba_chunk``, every frame OK, at least one loop closed
+     and one GBA finished, the composed ATE under the larger of phase 9's
+     limit and 1.5 x the reference's own mesh run
+     (``tools/reference_passes.py loop --mesh``), the launch identity of
+     phase 9, the kernel launches of the first GBA chunk; the kernel on
+     frame 48's four calls of this run, equal to the plain version and
+     timed as in phase 4. Last, ``python -m orb_slam_2_ros_tpu_torch.run
+     --dataset synthetic --frames 64 --mesh`` as a subprocess: exit 0 and
+     its mesh line.
 
 The frames are rendered on the host by worker processes that end before
 tracking starts. The last two lines are a JSON summary of the kernels and
@@ -202,6 +223,19 @@ MONO_ATE_LIMIT_M = 0.0851
 TUM_CAPTURE_FRAME = 8
 TUM_ATE_LIMIT_M = 0.05
 CLI_SYNTHETIC_FRAMES = 64
+# phase 18: the reference's own full-system loop pass with a mesh of one
+# device (tools/reference_passes.py loop --mesh, on a CPU): 224/224 OK, 1
+# loop, 1 GBA finished, composed ATE 0.304465 m. The mesh GBA frees every
+# camera and carries no loop priors, so its map differs from phase 9's by
+# design; the port's bar is the larger of phase 9's and 1.5 x this.
+REFERENCE_MESH_ATE_M = 0.304465
+MESH_ATE_LIMIT_M = max(FULL_ATE_LIMIT_M, 1.5 * REFERENCE_MESH_ATE_M)
+# the reference's dry-run shapes (__graft_entry__.dryrun_multichip)
+DRY_POSE_EDGES = 16
+DRY_BA_CAMS, DRY_BA_POINTS = 4, 8
+DRY_GBA_K, DRY_GBA_P, DRY_GBA_M = 128, 512, 8192
+DRY_GBA_CG = 20
+MESH_CAPTURE_FRAME = 48
 # (N, M, gates) beside the path's two shapes
 EDGE_CASES = ((1531, 1237, "random"), (77, 1, "random"), (64, 32767, "random"),
               (300, 500, "closed"), (257, 333, "open"))
@@ -1395,6 +1429,294 @@ def run_cli(torch, match_kernel, bench, timing, workdir):
         "synthetic_fps_with_host_io": res["fps"]}
 
 
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_dry_mesh(torch, mesh):
+    """Phase 18, first part: the reference's multi-chip dry run on the
+    mesh. Returns the GBA chunk's numbers."""
+    import torch.distributed as dist
+    from orb_slam_2_ros_tpu_torch import profiling
+    from orb_slam_2_ros_tpu_torch.config import SlamConfig
+    from orb_slam_2_ros_tpu_torch.geometry import camera, se3
+    from orb_slam_2_ros_tpu_torch.parallel import dist_ba, dist_pose
+    from orb_slam_2_ros_tpu_torch.solvers import ba
+
+    cfg = SlamConfig()
+    dev = mesh.device
+    rng = np.random.default_rng(0)
+
+    def t(x, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+
+    # the pose LM, edges split over the mp axis
+    n = DRY_POSE_EDGES
+    pts = t(np.stack([rng.uniform(-2, 2, n), rng.uniform(-1, 1, n),
+                      rng.uniform(2, 6, n)], -1))
+    q_true, t_true = se3.exp(t([0.05, -0.02, 0.03, 0.01, -0.02, 0.005]))
+    uvr = camera.project_stereo(cfg.camera, se3.apply(q_true, t_true, pts))
+    q, tt, inl, n_in = dist_pose.distributed_pose_optimization(
+        mesh, t([1.0, 0, 0, 0]), t([0.0, 0, 0]), pts, uvr[:, :2], uvr[:, 2],
+        torch.zeros(n, dtype=torch.int32, device=dev),
+        torch.ones(n, dtype=torch.bool, device=dev), cfg)
+    pose_err = float(torch.linalg.norm(se3.log(*se3.relative(
+        q, tt, q_true, t_true))))
+    log(f"mesh dry run: pose LM over {n} edges: error {pose_err:.3e} "
+        f"(limit 1e-3), {int(n_in)}/{n} inliers")
+    if not pose_err < 1e-3 or int(n_in) != n or not bool(inl.all()):
+        raise AssertionError(f"distributed pose LM: error {pose_err}, "
+                             f"{int(n_in)} inliers")
+
+    # the edge-split BA: 4 cameras, one free
+    nc, npt = DRY_BA_CAMS, DRY_BA_POINTS
+    pw = t(np.stack([rng.uniform(-2, 2, npt), rng.uniform(-1, 1, npt),
+                     rng.uniform(3, 7, npt)], -1))
+    q_c, t_c = se3.exp(t([[0.2 * i, 0.0, 0.0, 0.0, 0.01 * i, 0.0]
+                          for i in range(nc)]))
+    ci = torch.arange(nc, device=dev).repeat_interleave(npt)
+    mi = torch.arange(npt, device=dev).repeat(nc)
+    E = nc * npt
+    prob = ba.BAProblem(
+        cam_idx=ci, mp_idx=mi, obs=camera.project_stereo(
+            cfg.camera, se3.apply(q_c[ci], t_c[ci], pw[mi])),
+        is_stereo=torch.ones(E, dtype=torch.bool, device=dev),
+        inv_sigma2=torch.ones(E, device=dev),
+        valid=torch.ones(E, dtype=torch.bool, device=dev))
+    q1, t1 = se3.compose(*se3.exp(t([0.02, -0.01, 0.01, 0.005, -0.01,
+                                     0.004])), q_c[1], t_c[1])
+    q_p, t_p = q_c.clone(), t_c.clone()
+    q_p[1], t_p[1] = q1, t1
+    cam_free = torch.zeros(nc, dtype=torch.bool, device=dev)
+    cam_free[1] = True
+    free = torch.ones(npt, dtype=torch.bool, device=dev)
+    got = dist_ba.distributed_bundle_adjustment(
+        mesh, q_p, t_p, cam_free, pw, free, prob, cfg, phases=(3, 3),
+        cg_iters=10)
+    want = ba.bundle_adjustment(q_p, t_p, cam_free, pw, free, prob, cfg,
+                                phases=(3, 3), cg_iters=10)
+    diff = max(float((g - w).abs().max()) for g, w in zip(got[:3], want[:3]))
+    ba_err = float(torch.linalg.norm(se3.log(*se3.relative(
+        got[0][1], got[1][1], q_c[1], t_c[1]))))
+    log(f"mesh dry run: BA over {E} edges, camera 1 free: error "
+        f"{ba_err:.3e} (limit 1e-3), largest difference from "
+        f"bundle_adjustment {diff:.3e} (limit 1e-5), inlier masks "
+        f"{'equal' if torch.equal(got[3], want[3]) else 'DIFFER'}")
+    if not ba_err < 1e-3 or not diff <= 1e-5 or not torch.equal(got[3],
+                                                                 want[3]):
+        raise AssertionError(f"distributed BA: error {ba_err}, difference "
+                             f"{diff}")
+
+    # the point-and-edge-split GBA chunk at the reference's scale
+    K, P, M = DRY_GBA_K, DRY_GBA_P, DRY_GBA_M
+    rng = np.random.default_rng(7)
+    pw = t(np.stack([rng.uniform(-4, 4, M), rng.uniform(-2, 2, M),
+                     rng.uniform(2, 10, M)], -1))
+    ang = 2 * np.pi * np.arange(K) / K
+    q_b, t_b = se3.exp(t(np.stack([np.zeros(K), ang, np.zeros(K),
+                                   0.1 * np.sin(ang), np.zeros(K),
+                                   0.05 * np.cos(ang)], -1)))
+    ci = torch.arange(K, device=dev).repeat_interleave(P)
+    mi = t(rng.integers(0, M, K * P), torch.int64)
+    E = K * P
+    prob = ba.BAProblem(
+        cam_idx=ci, mp_idx=mi, obs=camera.project_stereo(
+            cfg.camera, se3.apply(q_b[ci], t_b[ci], pw[mi])),
+        is_stereo=torch.ones(E, dtype=torch.bool, device=dev),
+        inv_sigma2=torch.ones(E, device=dev),
+        valid=torch.ones(E, dtype=torch.bool, device=dev))
+    cam_free = torch.ones(K, dtype=torch.bool, device=dev)
+    cam_free[0] = False
+    st = dist_ba.shard_gba_state(mesh, ba.gba_init(
+        q_b, t_b, cam_free, pw, torch.ones(M, dtype=torch.bool, device=dev),
+        dist_ba.pad_problem(prob, mesh.shape["mp"]), K, M, cfg), cfg)
+    n_lm = 2
+    st = dist_ba.distributed_gba_chunk(mesh, st, cfg, n_iters=n_lm,
+                                       cg_iters=DRY_GBA_CG)  # warm-up
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        st = dist_ba.distributed_gba_chunk(mesh, st, cfg, n_iters=n_lm,
+                                           cg_iters=DRY_GBA_CG)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3 / n_lm)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        st = dist_ba.distributed_gba_chunk(mesh, st, cfg, n_iters=1,
+                                           cg_iters=DRY_GBA_CG)
+        torch.cuda.synchronize()
+    launches, busy_ms = profiling.raw_counts(prof)
+    card = command_output(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"])
+    finite = bool(torch.isfinite(st.pos).all() and torch.isfinite(st.q).all())
+    log(f"mesh dry run: GBA chunk over {E} edges and a {M}-point pool, "
+        f"{mesh.shape} on {dist.get_backend()}, cg {DRY_GBA_CG}: ms per LM "
+        f"iteration {[round(x, 3) for x in ms]} (host clock around "
+        f"synchronized 2-iteration chunks), "
+        f"{launches} kernel launches and {busy_ms:.3f} device-busy ms per "
+        f"LM iteration (torch.profiler); card {card}")
+    if not finite:
+        raise AssertionError("the GBA chunk gave non-finite values")
+    return {"gba_ms_per_lm_iter": ms,
+            "gba_launches_per_lm_iter": launches,
+            "gba_device_busy_ms_per_lm_iter": busy_ms,
+            "gba_edges": E, "gba_points": M, "gba_cg_iters": DRY_GBA_CG}
+
+
+def run_mesh_system(torch, match_kernel, bench, timing, loop_seq, voc,
+                    mesh):
+    """Phase 18, second part: the full system on the mesh over the loop.
+    Returns the kernel launches of the run, the four calls of frame
+    ``MESH_CAPTURE_FRAME`` and the run's numbers."""
+    from torch.profiler import ProfilerActivity, profile
+    from orb_slam_2_ros_tpu_torch import profiling
+    from orb_slam_2_ros_tpu_torch.frontend import matcher
+    from orb_slam_2_ros_tpu_torch.pipeline import loop_closing
+    from orb_slam_2_ros_tpu_torch.pipeline.slam import System
+    from orb_slam_2_ros_tpu_torch.pipeline.tracking import OK
+    from orb_slam_2_ros_tpu_torch.solvers import ba
+
+    cfg, ds, grays, depths = loop_seq
+    n = N_LOOP_FRAMES
+    system = System(cfg, vocab=voc, mesh=mesh)
+    lc = system.loop_closer
+    if (system.device.type != "cuda" or system.mapper.mesh is not mesh
+            or lc.mesh is not mesh):
+        raise AssertionError("the mesh did not reach the mapper and the "
+                             "loop closer on the card")
+    # count the sharded calls of the run, and profile the first GBA chunk
+    counted = {"windowed": 0, "gba_chunks": 0}
+    gba = {"chunk_ms": []}
+    dwba, gstep = loop_closing.dist_ba.distributed_windowed_ba, \
+        loop_closing._gba_step
+    from orb_slam_2_ros_tpu_torch.pipeline import local_mapping
+
+    def windowed(*args, **kwargs):
+        counted["windowed"] += 1
+        return dwba(*args, **kwargs)
+
+    def step(g, cfg_, mesh_=None):
+        if not isinstance(g, ba.GBAState) or mesh_ is not mesh:
+            raise AssertionError("the loop GBA left the mesh path")
+        counted["gba_chunks"] += 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if "launches" in gba:
+            out = gstep(g, cfg_, mesh_)
+            torch.cuda.synchronize()
+        else:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                out = gstep(g, cfg_, mesh_)
+                torch.cuda.synchronize()
+            gba["launches"], gba["device_busy_ms"] = \
+                profiling.raw_counts(prof)
+            gba["edges"] = int(g.prob.cam_idx.shape[0])
+        gba["chunk_ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    local_mapping.dist_ba.distributed_windowed_ba = windowed
+    loop_closing._gba_step = step
+    C = system.tracker.CHUNK
+    match_kernel.LAUNCHES = 0
+    t_run = time.perf_counter()
+    try:
+        for w0 in range(0, n, C):
+            with timing.capture_calls(matcher, "masked_best_two") as calls:
+                system.track_chunk(grays[w0:w0 + C], depths[w0:w0 + C],
+                                   ds.timestamps[w0:w0 + C])
+            if w0 == MESH_CAPTURE_FRAME:
+                path_args = [(label.replace("path:", "mesh system:"), a)
+                             for label, a in bench.label_path_calls(
+                                 calls[:4])]
+        system.flush()
+        torch.cuda.synchronize()
+    finally:
+        local_mapping.dist_ba.distributed_windowed_ba = dwba
+        loop_closing._gba_step = gstep
+    run_s = time.perf_counter() - t_run
+    launches = match_kernel.LAUNCHES
+
+    recs = system.records
+    n_ok = sum(r.state == OK for r in recs)
+    steps = system.mapper.n_executed
+    ate, live = composed_ate(system, ds)
+    expected = (4 * n + 8 * steps + loop_closing.LADDER_LAUNCHES * lc.n_ladders
+                + loop_closing.N_FUSE_ROWS * lc.n_corrections)
+    gba_started = lc.n_gba_finished + lc.n_gba_aborts
+    log(f"mesh system: {n_ok}/{n} frames OK, {lc.n_loops_closed} loops "
+        f"closed, {lc.n_ladders} Sim3 ladders, GBAs started {gba_started}, "
+        f"finished {lc.n_gba_finished}, rejected {lc.n_gba_rejected}, "
+        f"aborted {lc.n_gba_aborts}, composed ATE {ate:.6f} m ({live:.6f} m "
+        f"as tracked; limit {MESH_ATE_LIMIT_M:.6f} m; the reference's mesh "
+        f"run {REFERENCE_MESH_ATE_M} m), {system.tracker.n_kfs} keyframe "
+        f"rows, {steps} mapping steps ({counted['windowed']} windowed BAs on "
+        f"the mesh), {counted['gba_chunks']} GBA chunks on the mesh, "
+        f"{launches} matcher kernel launches (the path makes {expected})")
+    if gba.get("launches") is not None:
+        log(f"mesh system: first GBA chunk ({gba['edges']} edges, "
+            f"{loop_closing.GBA_CHUNK_ITERS} LM iterations of 100 CG "
+            f"iterations): {gba['launches']} kernel launches, "
+            f"{gba['device_busy_ms']:.3f} device-busy ms (torch.profiler); "
+            f"chunk wall ms {[round(x, 1) for x in gba['chunk_ms']]} (the "
+            f"first under the profiler)")
+    log(f"mesh system: {n / run_s:.2f} fps over the run and the flush (host "
+        f"clock)")
+    if n_ok != n:
+        bad = [i for i, r in enumerate(recs) if r.state != OK]
+        raise AssertionError(f"mesh system: frames not OK: {bad}")
+    if lc.n_loops_closed < 1 or lc.n_gba_finished < 1:
+        raise AssertionError(f"mesh system: {lc.n_loops_closed} loops, "
+                             f"{lc.n_gba_finished} GBAs finished")
+    if counted["windowed"] != steps or counted["gba_chunks"] < 1:
+        raise AssertionError(f"mesh system: {counted} for {steps} steps")
+    if launches != expected:
+        raise AssertionError(f"mesh system: matcher kernel launched "
+                             f"{launches} times, the path makes {expected}")
+    check_pools(system.tracker.map)
+    if lc.gba_running or lc._pending_verdict:
+        raise AssertionError("mesh system: flush left work behind")
+    for f in ("kf_q", "kf_t", "mp_pos"):
+        if not bool(torch.isfinite(getattr(system.tracker.map, f)).all()):
+            raise AssertionError(f"mesh system: {f} is not finite")
+    if not ate < MESH_ATE_LIMIT_M:
+        raise AssertionError(f"mesh system: ATE {ate} m >= "
+                             f"{MESH_ATE_LIMIT_M} m")
+    return launches, path_args, {
+        "frames_ok": n_ok, "loops_closed": lc.n_loops_closed,
+        "gba_started": gba_started, "gba_finished": lc.n_gba_finished,
+        "gba_rejected": lc.n_gba_rejected, "ate_composed_m": ate,
+        "ate_tracked_m": live, "mapping_steps": steps,
+        "gba_chunk_launches": gba.get("launches"),
+        "gba_chunk_device_busy_ms": gba.get("device_busy_ms"),
+        "gba_chunk_ms": gba["chunk_ms"], "fps": n / run_s}
+
+
+def run_mesh_cli():
+    """Phase 18, last part: the CLI with ``--mesh`` in its own process."""
+    cmd = [sys.executable, "-m", "orb_slam_2_ros_tpu_torch.run", "--dataset",
+           "synthetic", "--frames", str(CLI_SYNTHETIC_FRAMES),
+           "--render-workers", str(RENDER_WORKERS), "--mesh"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = out.stdout.splitlines()
+    mesh_line = [ln for ln in lines if ln.startswith("rank 0: mesh ")]
+    log(f"mesh cli: {' '.join(cmd[1:])}: exit {out.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s; "
+        + (mesh_line[0] if mesh_line else "NO mesh line") + "; "
+        + "; ".join(ln for ln in lines if ln.startswith(("done:", "ATE",
+                                                          "loops"))))
+    if out.returncode != 0 or mesh_line != [
+            "rank 0: mesh {'kf': 1, 'mp': 1} over 1 ranks (nccl)"]:
+        raise AssertionError(f"the mesh CLI failed: {out.stderr[-2000:]}")
+
+
 def check_and_time(torch, match_kernel, bench, timing, cases, floor, err,
                    timed):
     """The kernel on captured arguments: equal to the plain version, and
@@ -1531,6 +1853,27 @@ def main():
         err = check_and_time(torch, match_kernel, bench, timing, tum_args,
                              floor, err, timed)
 
+    # 18. the distributed back end on the card: a world of 1 on NCCL
+    import torch.distributed as dist
+    from orb_slam_2_ros_tpu_torch.parallel import multihost
+    rank = multihost.initialize(f"127.0.0.1:{_free_port()}", 1, 0)
+    try:
+        mesh = multihost.global_mesh()
+        log(f"mesh: rank {rank}, {mesh.shape} over {mesh.world} rank(s) on "
+            f"{dist.get_backend()}, {mesh.device}")
+        if dist.get_backend() != "nccl" or mesh.world != 1:
+            raise AssertionError(f"the mesh runs {dist.get_backend()} over "
+                                 f"{mesh.world} ranks")
+        mesh_numbers = run_dry_mesh(torch, mesh)
+        mesh_launches, mesh_args, mesh_run = run_mesh_system(
+            torch, match_kernel, bench, timing, loop_seq, voc, mesh)
+        mesh_numbers.update(mesh_run)
+        err = check_and_time(torch, match_kernel, bench, timing, mesh_args,
+                             floor, err, timed)
+    finally:
+        multihost.shutdown()
+    run_mesh_cli()
+
     log(f"matcher kernel launches: {launches} on the tracking path, "
         f"{map_launches} on the mapping path, {full_launches} on the full "
         f"system's path ({lc_launches} of them by loop closing), "
@@ -1539,7 +1882,8 @@ def main():
         f"the stereo paths, {stereo_loss_launches} on the stereo forced "
         f"loss, {mono_launches} on the mono path, {loc_launches} on the "
         f"localization path, {tum_launches} on the CLI's mini TUM run, "
-        f"{cli_synth_launches} on the CLI's synthetic run")
+        f"{cli_synth_launches} on the CLI's synthetic run, {mesh_launches} "
+        f"on the mesh system's path")
     by_path = {"tracking": launches, "mapping": map_launches,
                "full_system": full_launches,
                "loop_closing_within_full_system": lc_launches,
@@ -1551,10 +1895,12 @@ def main():
                "mono": mono_launches, "localization": loc_launches,
                "localization_relocalization_attempts": loc_attempts,
                "cli_mini_tum": tum_launches,
-               "cli_synthetic": cli_synth_launches}
+               "cli_synthetic": cli_synth_launches,
+               "mesh_system": mesh_launches}
     launches += (map_launches + full_launches + reloc_path_launches
                  + stereo_launches + stereo_loss_launches + mono_launches
-                 + loc_launches + tum_launches + cli_synth_launches)
+                 + loc_launches + tum_launches + cli_synth_launches
+                 + mesh_launches)
 
     # the headline numbers are the local-map search's, the largest call of
     # a frame: random gates at its shape; "cases" holds every case
@@ -1576,6 +1922,7 @@ def main():
         "mono_init_s": mono_init_s, "merge": merge,
         "orbvoc_load_s": vocab_load_s,
         "orbvoc_transform_ms": vocab_transform_ms, "cli": cli,
+        "mesh": mesh_numbers,
         "cases": timed}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

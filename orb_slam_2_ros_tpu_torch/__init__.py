@@ -2,7 +2,7 @@
 
 The JAX package ``orb_slam_2_ros_tpu`` stays the reference; this package
 mirrors its layout (``geometry/``, ``ops/``, ``frontend/``, ``solvers/``,
-``map/``, ``pipeline/``) and keeps its public function names and array
+``map/``, ``pipeline/``, ``parallel/``) and keeps its public function names and array
 layouts, so each module can be checked against its counterpart. It imports
 ``torch`` and never ``jax``, and nothing of the reference package, not even
 a module there that imports no JAX: it keeps its own copy of what it needs

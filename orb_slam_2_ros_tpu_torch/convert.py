@@ -5,7 +5,7 @@ SLAM has no weights: the map, the tracking context, the vocabulary tree,
 the loop closer's state and a global BA's snapshot are what two
 implementations must share to compare one step from an identical start.
 The reference's ``MapState``, ``TrackCarry``, ``Vocabulary``, ``LoopState``
-(with the BoW index and its ``kf_node`` table), ``DenseGBAState`` and
+(with the BoW index and its ``kf_node`` table), ``DenseGBAState``, ``GBAState`` and
 ``Frame`` arrive as dicts of numpy arrays (``jax.device_get(x._asdict())``; a nested MapState may also be a
 NamedTuple of numpy arrays). ``uint32`` descriptor words travel as
 ``int32`` with the same bits. Every function that makes tensors takes the
@@ -31,7 +31,8 @@ from orb_slam_2_ros_tpu_torch.pipeline.loop_closing import LoopState
 from orb_slam_2_ros_tpu_torch.pipeline.tracking import TrackCarry
 from orb_slam_2_ros_tpu_torch.place.database import BowDatabase
 from orb_slam_2_ros_tpu_torch.place.vocabulary import Vocabulary
-from orb_slam_2_ros_tpu_torch.solvers.ba import DenseGBAState
+from orb_slam_2_ros_tpu_torch.solvers.ba import (BAProblem, DenseGBAState,
+                                                GBAState)
 
 
 def config_from_dict(d) -> config.SlamConfig:
@@ -116,6 +117,18 @@ def dense_gba_state_from_numpy(d, device) -> DenseGBAState:
     d = _as_dict(d)
     return DenseGBAState(**{f: to_tensor(d[f], device)
                             for f in DenseGBAState._fields})
+
+
+def gba_state_from_numpy(d, device) -> GBAState:
+    """The reference's edge-list ``GBAState`` (its ``prob`` a nested
+    ``BAProblem``); edge indices become int64."""
+    d = _as_dict(d)
+    p = _as_dict(d["prob"])
+    prob = BAProblem(**{f: to_tensor(p[f], device) for f in BAProblem._fields})
+    prob = prob._replace(cam_idx=prob.cam_idx.long(),
+                         mp_idx=prob.mp_idx.long())
+    return GBAState(prob=prob, **{f: to_tensor(d[f], device)
+                                  for f in GBAState._fields if f != "prob"})
 
 
 def to_numpy(x):

@@ -31,6 +31,16 @@ def _to_pixels(cam: CameraConfig, xy: torch.Tensor) -> torch.Tensor:
                         xy[..., 1] * cam.fy + cam.cy], dim=-1)
 
 
+def distort_normalized(cam: CameraConfig, xy: torch.Tensor) -> torch.Tensor:
+    """Apply the Brown model to normalized coords (..., 2)."""
+    x, y = xy[..., 0], xy[..., 1]
+    r2 = x * x + y * y
+    radial = 1.0 + r2 * (cam.k1 + r2 * (cam.k2 + r2 * cam.k3))
+    xt = x * radial + 2.0 * cam.p1 * x * y + cam.p2 * (r2 + 2.0 * x * x)
+    yt = y * radial + cam.p1 * (r2 + 2.0 * y * y) + 2.0 * cam.p2 * x * y
+    return torch.stack([xt, yt], dim=-1)
+
+
 def undistort_normalized(cam: CameraConfig, xy_d: torch.Tensor,
                          iters: int = 10) -> torch.Tensor:
     """Invert the Brown model by fixed-point iteration (the scheme of
@@ -73,6 +83,14 @@ def backproject(cam: CameraConfig, uv: torch.Tensor,
     """Undistorted pixels + depth -> camera-frame 3D points."""
     d = depth[..., None] if depth.dim() == uv.dim() - 1 else depth
     return torch.cat([_normalize(cam, uv) * d, d], dim=-1)
+
+
+def depth_from_disparity(cam: CameraConfig, u_left: torch.Tensor,
+                         u_right: torch.Tensor) -> torch.Tensor:
+    """z = bf / (uL - uR); a non-positive disparity gives -1."""
+    disp = u_left - u_right
+    return torch.where(disp > 0, cam.bf / torch.clamp(disp, min=_EPS),
+                       torch.full_like(disp, -1.0))
 
 
 def right_coord_from_depth(cam: CameraConfig, u: torch.Tensor,

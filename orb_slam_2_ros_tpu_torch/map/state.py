@@ -1,8 +1,9 @@
 """MapState: the map as a NamedTuple of fixed-shape tensors.
 
-Port of ``orb_slam_2_ros_tpu/map/state.py`` without ``spawn_points`` (the
-tracker commits through ``commit_keyframe``; the monocular initializer
-appends its two keyframes with ``insert_keyframe``):
+Port of ``orb_slam_2_ros_tpu/map/state.py`` (the tracker commits through
+``commit_keyframe``; the monocular initializer appends its two keyframes
+with ``insert_keyframe``; ``spawn_points`` is the reference's public
+depth-channel spawner, which no path of either package calls):
 keyframes are rows of pooled tensors (pose, features and the kp -> map
 point observation table ``kf_mp``), map points are rows of point pools.
 Descriptors are int32 words with the reference's uint32 bits. What the
@@ -140,6 +141,75 @@ def row(pool: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     indexing with such a tensor reads it on the host first, which waits
     for the device; ``index_select`` does not."""
     return pool.index_select(0, k.reshape(1).to(torch.int64))[0]
+
+
+def spawn_points(state: MapState, kf_id, cfg: SlamConfig,
+                 close_only: bool = True, max_spawn: int = 512) -> MapState:
+    """Create map points from keyframe ``kf_id``'s depth channel for the
+    keypoints not yet associated (``Tracking::CreateNewKeyFrame``'s
+    depth-sorted spawning, ``Tracking.cc:1240-1296``).
+
+    ``close_only`` keeps depth < th_depth * baseline, the close/far split;
+    the nearest ``max_spawn`` eligible keypoints are spawned, within the
+    pool's free capacity."""
+    cam = cfg.camera
+    P, M = state.P, state.M
+    dev = state.kf_q.device
+    i32, i64 = torch.int32, torch.int64
+    k = torch.as_tensor(kf_id, dtype=i64, device=dev)
+    depth = row(state.kf_depth, k)
+    kf_mp = row(state.kf_mp, k)
+    eligible = row(state.kf_kp_valid, k) & (depth > 0) & (kf_mp < 0)
+    if close_only:
+        eligible = eligible & (depth < cam.bf / cam.fx * cam.th_depth)
+
+    # nearest first: rank the eligible keypoints by depth
+    order = torch.argsort(torch.where(eligible, depth,
+                                      torch.full_like(depth, float("inf"))),
+                          stable=True)
+    ranks = torch.empty_like(order).scatter_(
+        0, order, torch.arange(P, device=dev))
+    spawn = eligible & (ranks < max_spawn) & (ranks < M - state.n_mps)
+    new_id = torch.where(spawn, state.n_mps + ranks,
+                         torch.full_like(ranks, -1)).to(i32)
+
+    # back-project to the world
+    q, t = row(state.kf_q, k), row(state.kf_t, k)
+    uv = row(state.kf_uv, k)
+    xc = torch.cat([torch.stack([(uv[:, 0] - cam.cx) / cam.fx,
+                                 (uv[:, 1] - cam.cy) / cam.fy], -1)
+                    * depth[:, None], depth[:, None]], dim=-1)
+    xw = se3.apply(*se3.inverse(q, t), xc)
+    dirs = xw - se3.camera_center(q, t)
+    dist = torch.linalg.norm(dirs, dim=-1)
+    octv = row(state.kf_octave, k).to(torch.float32)
+    max_d = dist * torch.pow(torch.full_like(octv, cfg.orb.scale_factor),
+                             octv)
+    min_d = max_d / (cfg.orb.scale_factor ** (cfg.orb.n_levels - 1))
+    unit = dirs / torch.clamp(dist[:, None], min=1e-9)
+    tgt = torch.where(spawn, new_id.to(i64), torch.full_like(ranks, M))
+
+    def scat(pool, vals):
+        return pad_row(pool).index_put((tgt,), vals)[:M]
+
+    ones = torch.ones((P,), dtype=i32, device=dev)
+    obs = torch.full((P, NOBS_DESC), -1, dtype=i32, device=dev)
+    obs[:, 0] = (k * P + torch.arange(P, device=dev)).to(i32)
+    return state._replace(
+        mp_pos=scat(state.mp_pos, xw),
+        mp_valid=scat(state.mp_valid, spawn),
+        mp_desc=scat(state.mp_desc, row(state.kf_desc, k)),
+        mp_normal=scat(state.mp_normal, unit),
+        mp_min_dist=scat(state.mp_min_dist, 0.8 * min_d),
+        mp_max_dist=scat(state.mp_max_dist, 1.2 * max_d),
+        mp_first_kf=scat(state.mp_first_kf, ones * k.to(i32)),
+        mp_dir_sum=scat(state.mp_dir_sum, unit),
+        mp_obs_cnt=scat(state.mp_obs_cnt, ones),
+        mp_visible=scat(state.mp_visible, ones),
+        mp_found=scat(state.mp_found, ones),
+        mp_obs_tbl=scat(state.mp_obs_tbl, obs),
+        kf_mp=set_row(state.kf_mp, k, torch.where(spawn, new_id, kf_mp)),
+        n_mps=state.n_mps + torch.sum(spawn, dtype=i32))
 
 
 def bump_visibility(state: MapState, visible_mask: torch.Tensor,

@@ -23,6 +23,10 @@ Where the reference predicates with ``lax.cond`` on device scalars, the
 gate here is a Python ``if`` on the host's keyframe count; everything
 inside a step stays on the device and predicated, so a step reads the
 device only for the BA's exit tests.
+
+With a mesh, step 3's observation rows are split over the mesh's ``kf``
+axis (``parallel/dist_ba.distributed_windowed_ba``); the rest of the step
+runs the same on every rank.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from orb_slam_2_ros_tpu_torch.geometry import triangulate as tri
 from orb_slam_2_ros_tpu_torch.map import state as map_state
 from orb_slam_2_ros_tpu_torch.map.state import (pad_row, row, set_row,
                                                 set_rows)
+from orb_slam_2_ros_tpu_torch.parallel import dist_ba
 from orb_slam_2_ros_tpu_torch.pipeline.mono_init import median_or_one
 from orb_slam_2_ros_tpu_torch.solvers import ba
 
@@ -402,11 +407,22 @@ class LocalMapper:
     ``last_step`` holds what the most recent executed step did, as device
     scalars and host integers (see ``run``); ``n_executed`` counts executed
     steps.
+
+    ``mesh`` (``parallel.mesh.Mesh``): the windowed BA's observation rows
+    split over the mesh's ``kf`` axis (``dist_ba.distributed_windowed_ba``);
+    its 2 * ``window`` rows must divide by the axis size.
     """
 
-    def __init__(self, cfg: SlamConfig, window: int = 10):
+    def __init__(self, cfg: SlamConfig, window: int = 10, mesh=None):
         self.cfg = cfg
         self.window = window
+        self.mesh = mesh
+        if mesh is not None:
+            n_row = mesh.shape[cfg.mesh.kf_axis]
+            if (2 * window) % n_row:
+                raise ValueError(f"2 * window = {2 * window} rows must "
+                                 f"divide by the {n_row} shards of the "
+                                 f"{cfg.mesh.kf_axis} axis")
         # post-step keyframe count of the previous run; -1 = never ran,
         # the first step always executes
         self._prev_n_kfs = -1
@@ -454,7 +470,8 @@ class LocalMapper:
             return m, torch.zeros((), dtype=torch.int32,
                                   device=m.kf_q.device), last_mp
         m, last_mp, step = _mapping_body(
-            m, last_mp, self.cfg, self.window, allow_compact, full)
+            m, last_mp, self.cfg, self.window, allow_compact, full,
+            self.mesh)
         self._last_n_ba_free = step["n_ba_free"]
         self.last_step = step
         self.n_executed += 1
@@ -473,7 +490,7 @@ class LocalMapper:
 
 def _mapping_body(m: map_state.MapState, last_mp: torch.Tensor,
                   cfg: SlamConfig, window: int, allow_compact: bool,
-                  full: bool):
+                  full: bool, mesh=None):
     """The body of one executed step. Returns (m, last_mp, step dict)."""
     K, M = m.K, m.M
     dev = m.kf_q.device
@@ -514,11 +531,17 @@ def _mapping_body(m: map_state.MapState, last_mp: torch.Tensor,
     mp_free = mp_free & m.mp_valid
 
     ba_stats = {}
-    q_c, t_c, pos, edge_inl, _, n_ba_free = ba.windowed_bundle_adjustment(
-        m.kf_q[rows], m.kf_t[rows], window_rows, m.kf_uv[rows],
-        m.kf_ur[rows], m.kf_octave[rows], c_mp, c_kpv, m.mp_pos, mp_free,
-        cfg, phases=(cfg.solver.local_ba_iters1, cfg.solver.local_ba_iters2),
-        stats=ba_stats)
+    ba_args = (m.kf_q[rows], m.kf_t[rows], window_rows, m.kf_uv[rows],
+               m.kf_ur[rows], m.kf_octave[rows], c_mp, c_kpv, m.mp_pos,
+               mp_free, cfg)
+    phases = (cfg.solver.local_ba_iters1, cfg.solver.local_ba_iters2)
+    if mesh is None:
+        q_c, t_c, pos, edge_inl, _, n_ba_free = ba.windowed_bundle_adjustment(
+            *ba_args, phases=phases, stats=ba_stats)
+    else:
+        q_c, t_c, pos, edge_inl, _, n_ba_free = \
+            dist_ba.distributed_windowed_ba(mesh, *ba_args, phases=phases,
+                                            stats=ba_stats)
 
     # write back window poses and drop outlier observations at the
     # standard chi2 gate for every participating row

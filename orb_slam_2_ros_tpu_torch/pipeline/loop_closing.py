@@ -23,15 +23,24 @@ programs are plain functions on tensors here:
 4. ``_gba_start`` / ``_gba_step`` / ``_gba_finish``: the chunked dense
    global BA and its reconciliation with the map that kept growing.
 
+With a mesh (``LoopCloser(mesh=)``, ``parallel/``) the global BA is the
+reference's mesh branch (``loop_closing.py:950-970``): the edge list of
+every valid keyframe row (``ba.build_problem``) padded to the ``mp`` axis,
+the matrix-free CG chunk with the point pool and the edges split over that
+axis (``dist_ba.distributed_gba_chunk``), and the pool gathered whole for
+the reconciliation. Its faults are kept, as the reference's mesh runs show
+them: it ignores ``cfg.solver.gba_structure_only`` (every valid camera but
+the first moves), it carries no loop-edge priors, and it has no robust
+kernel.
+
 Deviations kept from the reference: the background GBA carries a divergence
 guard (``step_background``), the widening group adds temporal neighbours,
-and the fuse sweep searches at the base octave. Not ported: the sharded
-GBA over a device mesh.
+and the fuse sweep searches at the base octave.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -43,6 +52,7 @@ from orb_slam_2_ros_tpu_torch.map import state as map_state
 from orb_slam_2_ros_tpu_torch.map.state import row, set_row, set_rows
 from orb_slam_2_ros_tpu_torch.pipeline.local_mapping import _kf_as_frame
 from orb_slam_2_ros_tpu_torch.ops.ties import first_argmax, top_k_stable
+from orb_slam_2_ros_tpu_torch.parallel import dist_ba
 from orb_slam_2_ros_tpu_torch.place import database, vocabulary
 from orb_slam_2_ros_tpu_torch.solvers import ba, pose_graph, sim3_solver
 
@@ -498,17 +508,28 @@ def _apply_correction(m: map_state.MapState, st: LoopState, c: int, k: int,
     return m, st
 
 
-def _gba_start(m: map_state.MapState, st: LoopState,
-               cfg: SlamConfig) -> ba.DenseGBAState:
+def _gba_start(m: map_state.MapState, st: LoopState, cfg: SlamConfig,
+               mesh=None):
     """Snapshot the map for the chunked global BA
     (``RunGlobalBundleAdjustment``, ``LoopClosing.cc:758-862``; no robust
     kernel, as the reference: the large seam residuals ARE the signal).
     The measured seams enter as SE3 priors of weight
-    ``cfg.solver.gba_loop_prior_weight``."""
+    ``cfg.solver.gba_loop_prior_weight``.
+
+    With a mesh: this rank's part of the edge-list ``GBAState`` (see the
+    module's docstring), every valid camera but the first free whatever
+    ``gba_structure_only`` says, and no priors."""
     dev = m.kf_q.device
     rows = torch.arange(m.K, device=dev)
     kp_valid = m.kf_kp_valid & m.kf_valid[:, None]
     cam_free = m.kf_valid & (rows > 0)
+    if mesh is not None:
+        prob = dist_ba.pad_problem(
+            ba.build_problem(m.kf_uv, m.kf_ur, m.kf_octave, m.kf_mp,
+                             kp_valid, cfg), mesh.shape[cfg.mesh.mp_axis])
+        g = ba.gba_init(m.kf_q, m.kf_t, cam_free, m.mp_pos, m.mp_valid, prob,
+                        m.n_kfs, m.n_mps, cfg, robust=False)
+        return dist_ba.shard_gba_state(mesh, g, cfg)
     if cfg.solver.gba_structure_only:
         cam_free = torch.zeros_like(cam_free)
     L = MAX_LOOP_EDGES
@@ -522,18 +543,25 @@ def _gba_start(m: map_state.MapState, st: LoopState,
         loop_w=lw)
 
 
-def _gba_step(g: ba.DenseGBAState, cfg: SlamConfig) -> ba.DenseGBAState:
+def _gba_step(g, cfg: SlamConfig, mesh=None):
+    if mesh is not None:
+        return dist_ba.distributed_gba_chunk(mesh, g, cfg,
+                                             n_iters=GBA_CHUNK_ITERS)
     return ba.dense_gba_chunk(
         g, cfg, n_iters=GBA_CHUNK_ITERS,
         structure_only=cfg.solver.gba_structure_only)
 
 
-def _gba_finish(m: map_state.MapState, g: ba.DenseGBAState):
+def _gba_finish(m: map_state.MapState, g, mesh=None, cfg: SlamConfig = None):
     """Reconcile the GBA snapshot with the live map: keyframes and points
     that were IN the GBA take the optimised values; anything created (or
     culled) while it ran is corrected through its nearest in-GBA ancestor
     at the CURRENT relative pose, the spanning-tree propagation of
-    ``RunGlobalBundleAdjustment`` (``LoopClosing.cc:790-850``)."""
+    ``RunGlobalBundleAdjustment`` (``LoopClosing.cc:790-850``). ``g`` is a
+    ``DenseGBAState``, or with ``mesh`` (and its ``cfg``) a rank's part of a
+    ``GBAState``, whose point pool is gathered whole first."""
+    if mesh is not None:
+        g = dist_ba.gather_gba_points(mesh, g, cfg)
     K, M = m.K, m.M
     dev = m.kf_q.device
     i64 = torch.int64
@@ -572,11 +600,16 @@ class LoopCloser:
 
     ``n_ladders`` and ``n_corrections`` count the Sim3 ladders and the
     corrections run (3 and 9 launches of the matcher kernel each);
-    ``events`` logs each ladder and each finished GBA as a dict."""
+    ``events`` logs each ladder and each finished GBA as a dict.
+
+    ``mesh`` (``parallel.mesh.Mesh``): the global BA runs over it, its
+    point pool and edges split over the ``mp`` axis (the module's
+    docstring says what changes with it); everything else runs the same on
+    every rank."""
 
     def __init__(self, cfg: SlamConfig, vocab: vocabulary.Vocabulary,
                  min_kfs_between_loops: int = 10,
-                 background_gba: bool = False):
+                 background_gba: bool = False, mesh=None):
         self.cfg = cfg
         self.vocab = vocab
         self.device = vocab.node_desc.device    # the state lives beside it
@@ -590,6 +623,12 @@ class LoopCloser:
         # like the reference's detached GBA thread; False runs it to
         # completion inside process()
         self.background_gba = background_gba
+        self.mesh = mesh
+        if mesh is not None and cfg.map.max_mps % mesh.shape[cfg.mesh.mp_axis]:
+            raise ValueError(
+                f"the point pool (cfg.map.max_mps = {cfg.map.max_mps}) must "
+                f"divide over the {mesh.shape[cfg.mesh.mp_axis]} shards of "
+                f"the {cfg.mesh.mp_axis} axis")
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(cfg.seed)
         self.n_loops_closed = 0
@@ -610,7 +649,7 @@ class LoopCloser:
         self._pending_verdict = []
         # in-flight GBA handle (None = idle); dropping it aborts
         # (the mnFullBAIdx invalidation protocol, LoopClosing.cc:490-502)
-        self.gba: Optional[ba.DenseGBAState] = None
+        self.gba = None     # DenseGBAState, or a rank's GBAState on a mesh
         self._gba_iters_done = 0
 
     def clear_index(self):
@@ -786,7 +825,7 @@ class LoopCloser:
         # this correction
         if self.gba is not None:
             self.n_gba_aborts += 1
-        self.gba = _gba_start(m2, self.state, self.cfg)
+        self.gba = _gba_start(m2, self.state, self.cfg, self.mesh)
         self._gba_iters_done = 0
         if not self.background_gba:
             m2 = self.run_gba_to_completion(m2)
@@ -852,12 +891,12 @@ class LoopCloser:
         and the corrected map kept (``n_gba_rejected`` counts this)."""
         if self.gba is None:
             return m, False
-        self.gba = _gba_step(self.gba, self.cfg)
+        self.gba = _gba_step(self.gba, self.cfg, self.mesh)
         self._gba_iters_done += GBA_CHUNK_ITERS
         if self._gba_iters_done < self.cfg.solver.global_ba_iters:
             return m, False
         r_before = self._loop_edge_residual(m)
-        m2 = _gba_finish(m, self.gba)
+        m2 = _gba_finish(m, self.gba, self.mesh, self.cfg)
         self.gba = None
         self.n_gba_finished += 1
         r_after = self._loop_edge_residual(m2)

@@ -52,7 +52,13 @@ trajectory in the TUM or KITTI format (``io/trajectory.py``),
 ``render_debug_image`` draws the last frame (``pipeline/frame_drawer.py``)
 and ``map_points`` returns the valid points.
 
-Not ported yet: ``mesh=`` (Slice 8), which raises ``NotImplementedError``.
+``mesh=`` (``parallel.mesh.Mesh``, from ``parallel.multihost.global_mesh``)
+runs the back end over a mesh of process groups, one rank per device, every
+rank the same program on the same frames: the local BA's rows split over
+the ``kf`` axis when 2 * ``ba_window`` divides by it, and the loop
+closer's global BA (shared with the relocalizer's index) the reference's
+edge-list CG over the ``mp`` axis, with its faults (no structure-only
+mode, no loop priors; ``pipeline/loop_closing.py``).
 """
 
 from __future__ import annotations
@@ -104,8 +110,9 @@ def default_vocabulary(cfg: SlamConfig, device, warn: bool = True):
 
 
 class System:
-    """``device=None`` means the card (``cuda``) and raises where there is
-    none; the system runs on the CPU only when asked to (``device="cpu"``).
+    """``device=None`` means the card (``cuda``), or the mesh's device when
+    a ``mesh`` is given, and raises where there is none; the system runs on
+    the CPU only when asked to (``device="cpu"``, or a gloo mesh).
     """
 
     # keyframe-pool recycling: once the pool is this full, culled rows are
@@ -116,16 +123,25 @@ class System:
                  ba_window: int = 10, load_map=None,
                  enable_loop_closing: bool = True, vocab=None, device=None,
                  mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the sharded backend (mesh=) is not ported yet")
         self.cfg = cfg
         self.timers = StageTimers()
+        if mesh is not None and device is None:
+            device = mesh.device
         # the tracker rejects the sensors and modes that are not ported and
         # resolves the device
         self.tracker = Tracker(cfg, device=device)
         self.device = self.tracker.device
-        self.mapper = (LocalMapper(cfg, window=ba_window)
+        if mesh is not None and mesh.device.type != self.device.type:
+            raise ValueError(f"a mesh on {mesh.device} for a system on "
+                             f"{self.device}")
+        self.mesh = mesh
+        # the mapper's windowed BA splits its rows over the mesh's kf axis
+        # when the window divides by it
+        map_mesh = None
+        if (mesh is not None
+                and (2 * ba_window) % mesh.shape[cfg.mesh.kf_axis] == 0):
+            map_mesh = mesh
+        self.mapper = (LocalMapper(cfg, window=ba_window, mesh=map_mesh)
                        if enable_local_ba else None)
         self.n_resets = 0
         self.n_merges = 0
@@ -173,7 +189,7 @@ class System:
         tracking chunk."""
         self.relocalizer = Relocalizer(self.cfg, self.vocab)
         self.loop_closer = LoopCloser(self.cfg, self.vocab,
-                                      background_gba=True)
+                                      background_gba=True, mesh=self.mesh)
 
     def _bootstrap_vocabulary(self, grays):
         """Train the vocabulary from the first tracked chunk's descriptors

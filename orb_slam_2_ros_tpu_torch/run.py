@@ -17,9 +17,16 @@ BA run by default (``--no-loop-closing`` turns them off). Without
 
 The device is ``--device``, the card (``cuda``) by default; without a card
 the run raises unless ``--device cpu`` is given. ``--profile DIR`` writes a
-``torch.profiler`` trace of the tracked chunks. The multi-host flags of the
-reference (``--coordinator``, ``--num-hosts``, ``--host-id``, ``--mesh``)
-belong to the sharded backend, which is not ported.
+``torch.profiler`` trace of the tracked chunks.
+
+``--mesh`` runs the back end over a mesh of process groups
+(``parallel/``): the local BA's rows and the loop GBA's points and edges
+split over its ranks, one rank per card (NCCL; gloo with ``--device
+cpu``). Alone it makes a world of 1; under ``torchrun --nproc-per-node N``
+the world is torchrun's; ``--coordinator host:port --num-hosts N
+--host-id i`` joins one rank per host. Every rank runs the whole program
+on the same frames and prints ``rank r: mesh {...} over N ranks
+(backend)``.
 """
 
 from __future__ import annotations
@@ -76,6 +83,17 @@ def build_parser() -> argparse.ArgumentParser:
                          "directory")
     ap.add_argument("--device", default="cuda",
                     help="torch device: cuda (default) or cpu")
+    # multi-host runtime: every rank runs this same command; the loop GBA
+    # and the windowed BA split over the global mesh
+    ap.add_argument("--coordinator",
+                    help="host:port of rank 0's rendezvous store "
+                         "(multi-host jobs; omit on a single host)")
+    ap.add_argument("--num-hosts", type=int, default=None)
+    ap.add_argument("--host-id", type=int, default=None)
+    ap.add_argument("--mesh", action="store_true",
+                    help="build a mesh over all (local or global) ranks "
+                         "and route the loop GBA + windowed BA through it "
+                         "(parallel/dist_ba.py)")
     ap.add_argument("--render-workers", type=int, default=1,
                     help="synthetic dataset: render the frames up front in "
                          "this many processes (default 1: each frame when "
@@ -145,6 +163,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.dataset in ("tum", "kitti", "euroc") and not args.path:
         ap.error(f"--dataset {args.dataset} requires --path")
+    if args.coordinator and (args.num_hosts is None or args.host_id is None):
+        ap.error("--coordinator requires --num-hosts and --host-id")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -152,6 +172,27 @@ def main(argv=None):
             "torch.cuda.is_available() is False; pass --device cpu to run "
             "on the CPU")
 
+    mesh = None
+    made_group = False
+    if args.coordinator or args.mesh:
+        from torch import distributed as dist
+
+        from orb_slam_2_ros_tpu_torch.parallel import multihost
+        made_group = not dist.is_initialized()
+        rank = multihost.initialize(args.coordinator, args.num_hosts,
+                                    args.host_id, device=device)
+        mesh = multihost.global_mesh(device=device)
+        print(f"rank {rank}: mesh {mesh.shape} over {mesh.world} ranks "
+              f"({dist.get_backend()})", flush=True)
+        device = mesh.device
+    try:
+        return _run(args, device, mesh)
+    finally:
+        if made_group:
+            multihost.shutdown()
+
+
+def _run(args, device, mesh):
     from orb_slam_2_ros_tpu_torch.config import (SENSOR_MONOCULAR,
                                                  SENSOR_RGBD, SENSOR_STEREO)
     from orb_slam_2_ros_tpu_torch.io import datasets, trajectory
@@ -189,7 +230,7 @@ def main(argv=None):
     sys_ = System(cfg, enable_local_ba=not args.no_ba,
                   load_map=args.load_map,
                   enable_loop_closing=args.loop_closing, vocab=vocab,
-                  device=device)
+                  device=device, mesh=mesh)
 
     n = min(len(ds), args.frames) if args.dataset != "synthetic" else len(ds)
     chunk = sys_.tracker.chunk

@@ -21,12 +21,23 @@ are segment sums of per-edge blocks over a compact axis of at most
 the same result on every run).
 
 ``bundle_adjustment`` is the reference's general edge-list LM with a
-matrix-free CG solve of the reduced camera system
-(``build_problem``, ``_edge_terms``, ``_weights``, ``_make_lm_step``,
-without ``axis_name``): the monocular initializer runs it with both
-cameras fixed. Its edge sums are segment sums too. The chunked edge-list
-global BA (``gba_init``, ``gba_chunk``) and the sharded variants are not
-ported yet.
+matrix-free CG solve of the reduced camera system (``build_problem``,
+``_edge_terms``, ``_weights``, ``_make_lm_step``): the monocular
+initializer runs it with both cameras fixed. Its edge sums are segment
+sums too. ``gba_init`` / ``gba_chunk`` run the same step as the chunked
+global BA of a mesh (``GBAState``).
+
+The sharded modes (``parallel/dist_ba.py``): with a process ``group``, the
+edge-list step takes this rank's share of the edges, and every edge sum is
+a local segment sum followed by an ``all_reduce`` over the group (in that
+order, so that each rank adds the same numbers in the same order and all
+ranks hold the same bits). With ``shard_points`` the point state is this
+rank's block of rows as well: positions are gathered for the edges, and
+the point-side sums come back reduced to the owned rows. The windowed BA
+takes ``n_row_shards`` blocks of the observation table's rows; the camera
+system and the landmark accumulators are reduced over the group, and the
+small dense solve is repeated on every rank. Every value the host reads to
+leave a loop is reduced first, so the ranks leave together.
 """
 
 from __future__ import annotations
@@ -34,10 +45,12 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from orb_slam_2_ros_tpu_torch.config import SlamConfig
 from orb_slam_2_ros_tpu_torch.geometry import se3
 from orb_slam_2_ros_tpu_torch.ops.segment import segment_sum
+from orb_slam_2_ros_tpu_torch.parallel import mesh as _mesh
 
 _EPS = 1e-9
 
@@ -159,30 +172,55 @@ def _weights(prob: BAProblem, e, z, edge_mask, cfg: SlamConfig,
 
 
 def _make_lm_step(prob: BAProblem, cfg: SlamConfig, cam_free, mp_free,
-                  cg_iters: int):
+                  cg_iters: int, group=None, shard_points: bool = False,
+                  n_shards: int = 1):
     """One damped LM iteration of the Schur-complement BA, with the reduced
     camera system solved by preconditioned CG, every S-product evaluated
     edge-wise (gather -> 3x6/3x3 products -> segment sum). ``cam_free``
     None means every camera fixed: the CG's answer is then exactly zero
     (its right-hand side and every product are masked to zero), so it is
-    not run, and neither are the camera-side sums."""
+    not run, and neither are the camera-side sums.
+
+    With a process ``group`` the edges are this rank's share and every edge
+    sum is reduced over the group after its local segment sum; camera and
+    point states are the same on every rank. ``shard_points``: ``pos`` and
+    ``mp_free`` are this rank's (M / n_shards)-row block of the point pool;
+    the edges read positions from the gathered table and the point-side
+    sums come back as the owned rows of the reduced sum.
+
+    Returns (lm_step, allsum), ``allsum`` the group's reduction (the
+    identity without a group)."""
     ci, pi = prob.cam_idx, prob.mp_idx
-    M = mp_free.shape[0]
-    mpf = mp_free.to(torch.float32)[:, None]                # (M, 1)
+    Ml = mp_free.shape[0]          # local rows (the whole pool unsharded)
+    Mg = Ml * (n_shards if shard_points else 1)
+    mpf = mp_free.to(torch.float32)[:, None]                # (Ml, 1)
     eye3 = torch.eye(3, device=mpf.device)
     if cam_free is not None:
         C = cam_free.shape[0]
         camf = cam_free.to(torch.float32)[:, None]          # (C, 1)
         eye6 = torch.eye(6, device=mpf.device)
 
+    def allsum(x):
+        return x if group is None else _mesh.all_sum(x, group)
+
+    def gather_pts(x):
+        """Local point block -> the whole (Mg, d) table."""
+        return _mesh.gather_rows(x, group) if shard_points else x
+
     def cam_sum(vals):
-        return segment_sum(ci, vals, C)
+        return allsum(segment_sum(ci, vals, C))
 
     def pt_sum(vals):
-        return segment_sum(pi, vals, M)
+        """Per-edge point terms -> the owned rows, summed over the ranks."""
+        full = segment_sum(pi, vals, Mg)
+        if shard_points:
+            return _mesh.sum_scatter_rows(full, group)
+        return allsum(full)
+
+    mpf_full = gather_pts(mpf)                              # (Mg, 1)
 
     def lm_step(q, t, pos, edge_mask, use_kernel, lam, err):
-        e, Jc, Jp, z = _edge_terms(prob, q, t, pos, cfg)
+        e, Jc, Jp, z = _edge_terms(prob, q, t, gather_pts(pos), cfg)
         W, _ = _weights(prob, e, z, edge_mask, cfg, use_kernel)
         We = W * e
         JpT = Jp.mT
@@ -207,7 +245,7 @@ def _make_lm_step(prob: BAProblem, cfg: SlamConfig, cam_free, mp_free,
                 return pt_sum((JpT @ (W * jx)[..., None])[..., 0])
 
             def Hcp_mv(x):
-                jx = (Jp @ (x * mpf)[pi][..., None])[..., 0]
+                jx = (Jp @ (gather_pts(x) * mpf_full)[pi][..., None])[..., 0]
                 return cam_sum((JcT @ (W * jx)[..., None])[..., 0]) * camf
 
             def Hcc_mv(x):
@@ -259,8 +297,10 @@ def _make_lm_step(prob: BAProblem, cfg: SlamConfig, cam_free, mp_free,
             q_new = torch.where(cam_free[:, None], q_new, q)
             t_new = torch.where(cam_free[:, None], t_new, t)
         pos_new = torch.where(mp_free[:, None], pos + xp, pos)
-        e2, _, _, z2 = _edge_terms(prob, q_new, t_new, pos_new, cfg)
+        e2, _, _, z2 = _edge_terms(prob, q_new, t_new, gather_pts(pos_new),
+                                   cfg)
         _, err_new = _weights(prob, e2, z2, edge_mask, cfg, use_kernel)
+        err_new = allsum(err_new)
         improved = err_new < err
         q = torch.where(improved, q_new, q)
         t = torch.where(improved, t_new, t)
@@ -270,12 +310,12 @@ def _make_lm_step(prob: BAProblem, cfg: SlamConfig, cam_free, mp_free,
         err = torch.where(improved, err_new, err)
         return q, t, pos, lam, err
 
-    return lm_step
+    return lm_step, allsum
 
 
 def bundle_adjustment(q, t, cam_free, pos, mp_free, prob: BAProblem,
                       cfg: SlamConfig, phases=(5, 10), cg_iters: int = 100,
-                      robust: bool = True):
+                      robust: bool = True, group=None):
     """Schur-LM bundle adjustment over an edge list.
 
     q (C, 4), t (C, 3): world->camera poses; cam_free (C,) bool (False =
@@ -285,15 +325,21 @@ def bundle_adjustment(q, t, cam_free, pos, mp_free, prob: BAProblem,
     kernel in the first phase only (when ``robust``). Every iteration is
     predicated on the device: nothing is read on the host.
 
-    Returns (q, t, pos, edge_inlier (E,) bool)."""
+    With a process ``group``, ``prob`` is this rank's share of the edges
+    and the states are the same on every rank: every edge sum and the
+    error are reduced over the group (``parallel/dist_ba.py``).
+
+    Returns (q, t, pos, edge_inlier (E,) bool) of this rank's edges."""
     sc = cfg.solver
     delta2 = torch.where(prob.is_stereo, sc.huber_stereo2, sc.huber_mono2)
-    lm_step = _make_lm_step(prob, cfg, cam_free, mp_free, cg_iters)
+    lm_step, allsum = _make_lm_step(prob, cfg, cam_free, mp_free, cg_iters,
+                                    group)
     edge_mask = prob.valid
     for i, n_iters in enumerate(phases):
         use_kernel = robust and i == 0
         e, _, _, z = _edge_terms(prob, q, t, pos, cfg)
         _, err = _weights(prob, e, z, edge_mask, cfg, use_kernel)
+        err = allsum(err)
         lam = torch.full_like(err, 1e-4)
         for _ in range(n_iters):
             q, t, pos, lam, err = lm_step(q, t, pos, edge_mask, use_kernel,
@@ -309,7 +355,8 @@ def bundle_adjustment(q, t, cam_free, pos, mp_free, prob: BAProblem,
 
 def windowed_bundle_adjustment(kf_q, kf_t, window_rows, kf_uv, kf_ur,
                                kf_octave, kf_mp, kp_valid, mp_pos, mp_free,
-                               cfg: SlamConfig, phases=(5, 10), stats=None):
+                               cfg: SlamConfig, phases=(5, 10), stats=None,
+                               group=None, n_row_shards: int = 1):
     """Local BA with an explicitly materialized reduced camera system.
 
     kf_q (K, 4), kf_t (K, 3): the poses of the K rows of the observation
@@ -329,9 +376,16 @@ def windowed_bundle_adjustment(kf_q, kf_t, window_rows, kf_uv, kf_ur,
     used per phase) and ``cost`` (per phase, the cost at its start and at
     its end, as the LM tracks it).
 
+    With a process ``group`` over ``n_row_shards`` ranks, the observation
+    table and the row poses are this rank's block of rows (rank i holds
+    rows [i*K, (i+1)*K) of the table), while ``window_rows`` names rows of
+    the whole table: the camera system and the landmark accumulators are
+    reduced over the group, and the rest (the dense solve, the landmark
+    step, the exit test) is the same on every rank.
+
     Returns (kf_q, kf_t, mp_pos, edge_inlier (K, P) bool, edge_loose (K, P)
-    bool, n_free_total () int32)."""
-    K, P = kf_mp.shape
+    bool, n_free_total () int32), the row outputs for this rank's rows."""
+    K, P = kf_mp.shape            # this rank's rows under a group
     M = mp_pos.shape[0]
     Wn = window_rows.shape[0]
     sc = cfg.solver
@@ -340,12 +394,19 @@ def windowed_bundle_adjustment(kf_q, kf_t, window_rows, kf_uv, kf_ur,
     dev = kf_q.device
     f32, i32, i64 = torch.float32, torch.int32, torch.int64
 
+    def rsum(x):
+        return x if group is None else _mesh.all_sum(x, group)
+
+    # the whole table's row id of each local row
+    row_g = torch.arange(K, dtype=i32, device=dev)
+    if group is not None and n_row_shards > 1:
+        row_g = row_g + dist.get_rank(group) * K
+
     win_valid = window_rows >= 0
     # local window index per keyframe row (-1 = fixed): the first window
     # slot that names the row, taken as a minimum so that no tie order of
     # an argmax enters
-    eq = (window_rows[None, :] == torch.arange(K, dtype=i32, device=dev)[:, None]) \
-        & win_valid[None, :]
+    eq = (window_rows[None, :] == row_g[:, None]) & win_valid[None, :]
     slots_w = torch.arange(Wn, dtype=i32, device=dev)
     first = torch.min(torch.where(eq, slots_w, torch.full_like(slots_w, Wn)),
                       dim=1).values
@@ -440,7 +501,7 @@ def windowed_bundle_adjustment(kf_q, kf_t, window_rows, kf_uv, kf_ur,
         # once per call, below); cost and gradient stay consistent
         w = torch.where(ok, inv_sigma2 * w_rob, torch.zeros_like(chi2)) * edge_w
         err = torch.sum(torch.where(ok, rho * edge_w, torch.zeros_like(rho)))
-        return w[..., None] * comp_w0, err
+        return w[..., None] * comp_w0, rsum(err)
 
     def cost(q, t, cpos, edge_mask, use_kernel):
         e, _, _, z = edge_terms(q, t, cpos, jacobians=False)
@@ -457,10 +518,10 @@ def windowed_bundle_adjustment(kf_q, kf_t, window_rows, kf_uv, kf_ur,
         gc_k = torch.einsum("kpin,kpi->kn", Jc, We * cam_on)  # (K, 6)
         JcW = Jc * Wc[..., None]                              # (K, P, 3, 6)
         Hcc_k = torch.einsum("kpin,kpim->knm", JcW, Jc)       # (K, 6, 6)
-        gc = torch.zeros((Wn + 1, 6), dtype=f32, device=dev).index_add(
-            0, tgt_w, gc_k)[:Wn]
-        Hcc = torch.zeros((Wn + 1, 6, 6), dtype=f32, device=dev).index_add(
-            0, tgt_w, Hcc_k)[:Wn]
+        gc = rsum(torch.zeros((Wn + 1, 6), dtype=f32, device=dev).index_add(
+            0, tgt_w, gc_k)[:Wn])
+        Hcc = rsum(torch.zeros((Wn + 1, 6, 6), dtype=f32,
+                               device=dev).index_add(0, tgt_w, Hcc_k)[:Wn])
 
         # point side: segment sums of the per-edge (12,) and (18,) blocks
         # over the compact landmark axis. Edges whose landmark is fixed,
@@ -472,13 +533,13 @@ def windowed_bundle_adjustment(kf_q, kf_t, window_rows, kf_uv, kf_ur,
         Bv = (JcW.mT @ Jp).reshape(K, P, 18)                  # (K, P, 6*3)
         cid_masked = torch.where(edge_mask, edge_cid,
                                  torch.full_like(edge_cid, MW))
-        acc_p = segment_sum(cid_masked.reshape(-1), pv.reshape(-1, 12),
-                            MW + 1)[:MW]
+        acc_p = rsum(segment_sum(cid_masked.reshape(-1), pv.reshape(-1, 12),
+                                 MW + 1)[:MW])
         t_idx = torch.where((cid_masked < MW) & row_free,
                             cid_masked * Wn + tgt_w[:, None],
                             torch.full_like(cid_masked, MW * Wn))
-        acc_t = segment_sum(t_idx.reshape(-1), Bv.reshape(-1, 18),
-                            MW * Wn + 1)[:MW * Wn]
+        acc_t = rsum(segment_sum(t_idx.reshape(-1), Bv.reshape(-1, 18),
+                                 MW * Wn + 1)[:MW * Wn])
         gp = acc_p[:, :3]                                     # (MW, 3)
         Hpp = acc_p[:, 3:].reshape(MW, 3, 3)
         T = acc_t.reshape(MW, Wn, 6, 3)
@@ -545,7 +606,8 @@ def windowed_bundle_adjustment(kf_q, kf_t, window_rows, kf_uv, kf_ur,
             q, t, cpos, lam, err, done = lm_step(q, t, cpos, edge_mask,
                                                  use_kernel, lam, err)
             used += 1
-            if bool(done):          # one host read per iteration
+            # one host read per iteration, of a value every rank holds
+            if bool(done):
                 break
         return q, t, cpos, used, (err0, err)
 
@@ -583,6 +645,60 @@ def windowed_bundle_adjustment(kf_q, kf_t, window_rows, kf_uv, kf_ur,
     # the total free count lets callers see an overflow of the compact
     # axis: above MW the landmarks ranked past the cap stayed frozen
     return q, t, pos, edge_mask, edge_loose, torch.sum(mp_free, dtype=i32)
+
+
+# --------------------------------------------------------------------------
+# Chunked edge-list global BA: the background refinement on a mesh.
+# --------------------------------------------------------------------------
+
+class GBAState(NamedTuple):
+    """A global BA in flight over an edge list (the mesh path's snapshot
+    of the map, ``RunGlobalBundleAdjustment``, ``LoopClosing.cc:758-862``).
+    Under ``shard_points`` (``parallel/dist_ba.shard_gba_state``) ``prob``
+    holds this rank's edges and ``pos`` / ``mp_free`` its block of the
+    point pool; the rest is the same on every rank."""
+
+    q: torch.Tensor          # (K, 4) optimised poses (world->camera)
+    t: torch.Tensor          # (K, 3)
+    pos: torch.Tensor        # (M, 3) optimised points
+    lam: torch.Tensor        # () LM damping
+    err: torch.Tensor        # () error
+    prob: BAProblem          # snapshot edge set
+    cam_free: torch.Tensor   # (K,) bool
+    mp_free: torch.Tensor    # (M,) bool
+    n0: torch.Tensor         # () int32 keyframes at snapshot time
+    nm0: torch.Tensor        # () int32 map points at snapshot time
+
+
+def gba_init(q, t, cam_free, pos, mp_free, prob: BAProblem, n_kfs, n_mps,
+             cfg: SlamConfig, robust: bool = False) -> GBAState:
+    """Snapshot the problem and evaluate the starting error over all of
+    its edges."""
+    e, _, _, z = _edge_terms(prob, q, t, pos, cfg)
+    _, err0 = _weights(prob, e, z, prob.valid, cfg, robust)
+    dev = q.device
+    return GBAState(q=q, t=t, pos=pos,
+                    lam=torch.full((), 1e-4, dtype=torch.float32, device=dev),
+                    err=err0, prob=prob, cam_free=cam_free, mp_free=mp_free,
+                    n0=torch.as_tensor(n_kfs, dtype=torch.int32, device=dev),
+                    nm0=torch.as_tensor(n_mps, dtype=torch.int32, device=dev))
+
+
+def gba_chunk(st: GBAState, cfg: SlamConfig, n_iters: int,
+              cg_iters: int = 100, robust: bool = False, group=None,
+              shard_points: bool = False, n_shards: int = 1) -> GBAState:
+    """Advance the global BA by ``n_iters`` LM iterations of the
+    matrix-free step; the host checks for an abort between chunks (the
+    ``mnFullBAIdx`` protocol, ``LoopClosing.cc:490-502``). ``group``,
+    ``shard_points`` and ``n_shards`` as in ``_make_lm_step``."""
+    lm_step, _ = _make_lm_step(st.prob, cfg, st.cam_free, st.mp_free,
+                               cg_iters, group, shard_points=shard_points,
+                               n_shards=n_shards)
+    q, t, pos, lam, err = st.q, st.t, st.pos, st.lam, st.err
+    for _ in range(n_iters):
+        q, t, pos, lam, err = lm_step(q, t, pos, st.prob.valid, robust,
+                                      lam, err)
+    return st._replace(q=q, t=t, pos=pos, lam=lam, err=err)
 
 
 # --------------------------------------------------------------------------

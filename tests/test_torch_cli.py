@@ -16,6 +16,11 @@ the CLI runner.
   prefetcher's u8/u16 path gives bit-identical records.
 - ``run.main(["--device", "cpu", ...])`` on a small synthetic sequence
   writes what it is asked to; without ``--device`` it means the card.
+- The mesh flags: ``--coordinator``, ``--num-hosts``, ``--host-id`` and
+  ``--mesh`` parse; ``--coordinator`` without the other two is an error, as
+  the reference's rendezvous refuses it; ``--mesh --device cpu`` on 32
+  frames runs a world of 1 on gloo, prints its mesh line and leaves no
+  process group behind.
 """
 
 import dataclasses
@@ -257,3 +262,41 @@ def test_run_main_on_a_small_synthetic_sequence(tmp_path, monkeypatch,
     img = np.asarray(Image.open(out["img"]))
     assert img.shape == (240 + 20, 320, 3)
     assert os.path.exists(out["map"] + ".npz")
+
+
+def test_mesh_flags_parse():
+    args = run.build_parser().parse_args(
+        ["--coordinator", "10.0.0.1:1234", "--num-hosts", "4", "--host-id",
+         "2", "--mesh"])
+    assert (args.coordinator, args.num_hosts, args.host_id, args.mesh) == (
+        "10.0.0.1:1234", 4, 2, True)
+    args = run.build_parser().parse_args([])
+    assert (args.coordinator, args.num_hosts, args.host_id, args.mesh) == (
+        None, None, None, False)
+
+
+@pytest.mark.parametrize("extra", [[], ["--num-hosts", "2"],
+                                   ["--host-id", "0"]])
+def test_coordinator_needs_the_host_count_and_id(extra, capsys):
+    with pytest.raises(SystemExit) as e:
+        run.main(["--device", "cpu", "--coordinator", "127.0.0.1:1"]
+                 + extra)
+    assert e.value.code != 0
+    assert "--coordinator requires" in capsys.readouterr().err
+
+
+def test_run_main_with_a_mesh_of_one(monkeypatch, capsys):
+    import torch.distributed as dist
+    cfg = dataclasses.replace(small_cfg(), vocab=VocabConfig(k=6, levels=3))
+    tcfg = convert.config_from_dict(dataclasses.asdict(cfg))
+    monkeypatch.setitem(presets.PRESETS, "small",
+                        lambda sensor=tcfg.sensor: tcfg.replace(sensor=sensor))
+    res = run.main(["--device", "cpu", "--dataset", "synthetic", "--preset",
+                    "small", "--frames", "32", "--mesh"])
+    text = capsys.readouterr().out
+    assert "rank 0: mesh {'kf': 1, 'mp': 1} over 1 ranks (gloo)" in text
+    assert res["ok"] == 32 and res["ate_m"] < 0.05
+    system = res["system"]
+    assert system.mesh is not None and system.mapper.mesh is system.mesh
+    assert system.loop_closer.mesh is system.mesh
+    assert not dist.is_initialized()

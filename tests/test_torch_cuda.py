@@ -449,3 +449,57 @@ def test_cuda_vo_frame_matches_cpu(cuda):
     assert gpu.state == cpu.state == OK
     assert abs(gpu.n_inliers - cpu.n_inliers) <= 2
     np.testing.assert_allclose(gpu.c_w, cpu.c_w, atol=1e-3)
+
+
+def test_cuda_world_of_one_on_nccl(cuda):
+    """A world of 1 on NCCL: ``distributed_bundle_adjustment`` equals
+    ``bundle_adjustment`` on the card, within 1e-5."""
+    import torch.distributed as dist
+    from orb_slam_2_ros_tpu_torch.geometry import camera, se3
+    from orb_slam_2_ros_tpu_torch.parallel import dist_ba, multihost
+    from orb_slam_2_ros_tpu_torch.solvers import ba
+
+    made = not dist.is_initialized()
+    m = multihost.global_mesh()
+    try:
+        assert dist.get_backend() == "nccl" and m.device.type == "cuda"
+        cfg = SlamConfig()
+        rng = np.random.default_rng(0)
+        n_cams, n_pts = 4, 64
+        pw = torch.from_numpy(np.stack([
+            rng.uniform(-2, 2, n_pts), rng.uniform(-1, 1, n_pts),
+            rng.uniform(3, 7, n_pts)], -1).astype(np.float32)).to(cuda)
+        xi = torch.tensor([[0.2 * i, 0.0, 0.0, 0.0, 0.01 * i, 0.0]
+                           for i in range(n_cams)], device=cuda)
+        q, t = se3.exp(xi)
+        ci = torch.arange(n_cams, device=cuda).repeat_interleave(n_pts)
+        mi = torch.arange(n_pts, device=cuda).repeat(n_cams)
+        obs = camera.project_stereo(cfg.camera, se3.apply(q[ci], t[ci],
+                                                          pw[mi]))
+        E = n_cams * n_pts
+        prob = ba.BAProblem(cam_idx=ci, mp_idx=mi, obs=obs,
+                            is_stereo=torch.ones(E, dtype=torch.bool,
+                                                 device=cuda),
+                            inv_sigma2=torch.ones(E, device=cuda),
+                            valid=torch.ones(E, dtype=torch.bool,
+                                             device=cuda))
+        dq, dt = se3.exp(torch.tensor([0.02, -0.01, 0.01, 0.005, -0.01,
+                                       0.004], device=cuda))
+        q1, t1 = se3.compose(dq, dt, q[1], t[1])
+        q_p, t_p = q.clone(), t.clone()
+        q_p[1], t_p[1] = q1, t1
+        cam_free = torch.zeros(n_cams, dtype=torch.bool, device=cuda)
+        cam_free[1] = True
+        free = torch.ones(n_pts, dtype=torch.bool, device=cuda)
+        want = ba.bundle_adjustment(q_p, t_p, cam_free, pw, free, prob, cfg,
+                                    phases=(3, 3), cg_iters=10)
+        got = dist_ba.distributed_bundle_adjustment(
+            m, q_p, t_p, cam_free, pw, free, prob, cfg, phases=(3, 3),
+            cg_iters=10)
+        for g, w in zip(got[:3], want[:3]):
+            assert g.is_cuda
+            torch.testing.assert_close(g, w, atol=1e-5, rtol=0)
+        assert torch.equal(got[3], want[3])
+    finally:
+        if made:
+            multihost.shutdown()

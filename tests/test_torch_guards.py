@@ -37,7 +37,9 @@ def test_port_imports_no_jax():
                 "frontend.stereo", "solvers.initializer",
                 "pipeline.mono_init", "pipeline.map_merge", "run",
                 "presets", "io.datasets", "io.trajectory", "geometry.rectify",
-                "native", "pipeline.frame_drawer"):
+                "native", "pipeline.frame_drawer", "parallel",
+                "parallel.mesh", "parallel.multihost", "parallel.dist_ba",
+                "parallel.dist_pose"):
         assert f"{pkg}.{new}" in mods, new
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

@@ -245,9 +245,10 @@ def test_reset_and_single_frame(seq):
 
 def test_unported_modes_raise(seq, tmp_path):
     """Mono, localization-only and map loading are ported (Slices 6 and
-    7a), the trajectory savers and the debug image too (Slice 7b); what
-    still raises is Slice 8's ``mesh=``. Before any frame the savers write
-    empty files and there is no debug image."""
+    7a), the trajectory savers and the debug image too (Slice 7b), and
+    Slice 8's ``mesh=``, which raises only for a mesh on another device
+    than the system's. Before any frame the savers write empty files and
+    there is no debug image."""
     cfg = seq["tcfg"]
     off = dict(enable_loop_closing=False, device="cpu")
     system = tslam.System(cfg, **off)
@@ -259,8 +260,11 @@ def test_unported_modes_raise(seq, tmp_path):
         assert path.read_text() == ""
     assert system.render_debug_image() is None
     assert system.map_points().shape == (0, 3)
-    with pytest.raises(NotImplementedError):
-        tslam.System(cfg, mesh=object(), **off)
+    import types
+    card_mesh = types.SimpleNamespace(device=torch.device("cuda", 0),
+                                      shape={"kf": 1, "mp": 1})
+    with pytest.raises(ValueError, match="mesh on cuda"):
+        tslam.System(cfg, mesh=card_mesh, **off)
     # the monocular and stereo sensors and localization-only mode are
     # ported
     mono = cfg.replace(sensor=0)

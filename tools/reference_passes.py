@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Run the JAX reference's hard pass or monocular pass once, on whatever
-backend JAX finds, and print its counts and ATE.
+"""Run the JAX reference's hard pass, loop pass or monocular pass once, on
+whatever backend JAX finds, and print its counts and ATE.
 
     JAX_PLATFORMS=cpu python tools/reference_passes.py hard [--dump DIR]
+    JAX_PLATFORMS=cpu python tools/reference_passes.py loop [--mesh]
     JAX_PLATFORMS=cpu python tools/reference_passes.py mono
 
 ``hard``: the reference bench's hard pass (``bench.py:224-251``): 288
@@ -23,6 +24,12 @@ in-flight global BA, its random key, the mapper's host counters) to
 ``DIR/chunk_NN.pkl.gz`` as nested dicts of numpy arrays, and the frames to
 ``DIR/frames.npz``: what ``tools/hard_divergence.py`` starts both packages
 from.
+
+``loop``: the bench's full-system pass, the same run over the 224-frame
+``loop`` trajectory; with ``--mesh`` the system gets a mesh of one device
+(``parallel/mesh.make_mesh(1, 1)``), so its local BA runs through
+``distributed_windowed_ba`` and its loop GBA through the matrix-free
+``distributed_gba_chunk`` in place of the dense one.
 
 ``mono``: the reference bench's monocular pass (``bench.py:292-311``):
 ``System(SlamConfig(sensor=SENSOR_MONOCULAR), enable_loop_closing=False)``
@@ -147,18 +154,15 @@ def _dump_state(system, path):
         pickle.dump(state, f)
 
 
-def hard(dump=None):
+def _loop_vocabulary(cfg):
+    """The bench's vocabulary: k = 10, 4 levels, seed 0, trained on the
+    descriptors of every 24th frame of the 224-frame loop."""
     import jax
     import jax.numpy as jnp
-    from orb_slam_2_ros_tpu.config import SENSOR_RGBD, SlamConfig
     from orb_slam_2_ros_tpu.frontend import frame as frame_mod
     from orb_slam_2_ros_tpu.io.synthetic import SyntheticRGBD
-    from orb_slam_2_ros_tpu.io.trajectory import ate_rmse
-    from orb_slam_2_ros_tpu.pipeline.slam import System
-    from orb_slam_2_ros_tpu.pipeline.tracking import OK
     from orb_slam_2_ros_tpu.place import vocabulary
 
-    cfg = SlamConfig(sensor=SENSOR_RGBD)
     loop = SyntheticRGBD(cfg, n_frames=224, seed=0, trajectory="loop")
     descs = []
     for i in range(0, 224, 24):
@@ -167,11 +171,18 @@ def hard(dump=None):
                                  jnp.asarray(d, jnp.float32), cfg)
         descs.append(np.asarray(jax.device_get(f.kps.desc))[
             np.asarray(jax.device_get(f.valid))])
-    voc = vocabulary.train_vocabulary(np.concatenate(descs), cfg, seed=0)
-    n = 288
-    ds = SyntheticRGBD(cfg, n_frames=n, seed=0, trajectory="twoloop",
-                       exposure_drift=0.25)
-    system = System(cfg, vocab=voc)
+    return vocabulary.train_vocabulary(np.concatenate(descs), cfg, seed=0)
+
+
+def _full_system_pass(name, cfg, ds, n, dump=None, mesh=None):
+    """``System(cfg, vocab=voc, mesh=mesh)`` over ``n`` frames of ``ds`` in
+    chunks of 16, then ``flush()``; the per-chunk log and the counts."""
+    from orb_slam_2_ros_tpu.io.trajectory import ate_rmse
+    from orb_slam_2_ros_tpu.pipeline.slam import System
+    from orb_slam_2_ros_tpu.pipeline.tracking import OK
+
+    voc = _loop_vocabulary(cfg)
+    system = System(cfg, vocab=voc, mesh=mesh)
     C = system.tracker.chunk
     line = _chunk_logger(system)
     all_grays = np.stack([ds[i][0] for i in range(n)])
@@ -204,13 +215,41 @@ def hard(dump=None):
     gt = np.stack([R0.T @ (ds.gt_pose_wc(idx[t])[1] - c0) for t in ts])
     live = np.stack([r.c_w for r in system.records])
     gt_live = np.stack([R0.T @ (ds.gt_pose_wc(i)[1] - c0) for i in range(n)])
-    return {"pass": "hard", "frames": n,
+    return {"pass": name, "frames": n,
             "ok": sum(r.state == OK for r in system.records),
             "loops_closed": int(lc.n_loops_closed),
+            "gba_started": log[-1]["gba_started"],
             "gba_finished": int(lc.n_gba_finished),
+            "gba_rejected": int(lc.n_gba_rejected),
             "ate_composed_m": float(ate_rmse(est, gt)),
             "ate_tracked_m": float(ate_rmse(live, gt_live)),
             "seconds": time.perf_counter() - t0, "chunks": log}
+
+
+def hard(dump=None):
+    from orb_slam_2_ros_tpu.config import SENSOR_RGBD, SlamConfig
+    from orb_slam_2_ros_tpu.io.synthetic import SyntheticRGBD
+
+    cfg = SlamConfig(sensor=SENSOR_RGBD)
+    n = 288
+    ds = SyntheticRGBD(cfg, n_frames=n, seed=0, trajectory="twoloop",
+                       exposure_drift=0.25)
+    return _full_system_pass("hard", cfg, ds, n, dump=dump)
+
+
+def loop(use_mesh=False):
+    import jax
+    from orb_slam_2_ros_tpu.config import SENSOR_RGBD, SlamConfig
+    from orb_slam_2_ros_tpu.io.synthetic import SyntheticRGBD
+    from orb_slam_2_ros_tpu.parallel.mesh import make_mesh
+
+    cfg = SlamConfig(sensor=SENSOR_RGBD)
+    n = 224
+    ds = SyntheticRGBD(cfg, n_frames=n, seed=0, trajectory="loop")
+    mesh = (make_mesh(n_kf=1, n_mp=1, devices=jax.devices()[:1])
+            if use_mesh else None)
+    return _full_system_pass("loop --mesh" if use_mesh else "loop", cfg, ds,
+                             n, mesh=mesh)
 
 
 def mono():
@@ -251,6 +290,8 @@ if __name__ == "__main__":
         dump = (sys.argv[sys.argv.index("--dump") + 1]
                 if "--dump" in sys.argv else None)
         out = hard(dump)
+    elif which == "loop":
+        out = loop(use_mesh="--mesh" in sys.argv)
     else:
         out = mono()
     print(json.dumps(out), flush=True)
