@@ -154,7 +154,18 @@ Phases, each reported on its own lines:
      frame 48's four calls of this run, equal to the plain version and
      timed as in phase 4. Last, ``python -m orb_slam_2_ros_tpu_torch.run
      --dataset synthetic --frames 64 --mesh`` as a subprocess: exit 0 and
-     its mesh line.
+     its mesh line;
+ 19. the bench (``python -m orb_slam_2_ros_tpu_torch.bench``, the port of
+     the reference's ``bench.py``): its RGB-D and stereo tracking-only
+     passes on phase 5's orbit and phase 13's pairs (two warm chunks, every
+     timed frame OK, the RGB-D ATE over all frames below 0.01 m, 4 launches
+     a frame) and its mono pass on the orbit (every timed frame OK, the
+     first OK frame of phase 14, 4 launches a tracked frame and 8 a step),
+     each with its frame rate; then its warm-up-and-reset protocol on the
+     loop's first 48 frames: ``System(cfg, vocab=voc)`` with phase 9's
+     vocabulary runs them, ``reset()``, the records cleared, and runs them
+     again: every record equal in every field, every field of the map
+     equal, the launch identity of phase 9.
 
 The frames are rendered on the host by worker processes that end before
 tracking starts. The last two lines are a JSON summary of the kernels and
@@ -236,6 +247,8 @@ DRY_BA_CAMS, DRY_BA_POINTS = 4, 8
 DRY_GBA_K, DRY_GBA_P, DRY_GBA_M = 128, 512, 8192
 DRY_GBA_CG = 20
 MESH_CAPTURE_FRAME = 48
+# phase 19: the loop's frames that the bench's reset check runs twice
+BENCH_RESET_FRAMES = 48
 # (N, M, gates) beside the path's two shapes
 EDGE_CASES = ((1531, 1237, "random"), (77, 1, "random"), (64, 32767, "random"),
               (300, 500, "closed"), (257, 333, "open"))
@@ -297,8 +310,8 @@ def time_kernel(match_kernel, bench, timing, label, args, floor):
 
 def run_main_path(torch, match_kernel, bench, timing):
     """Phase 5. Returns the number of kernel launches on the path, the
-    matcher's arguments in frame ``CAPTURE_FRAME``, and the orbit (dataset
-    and gray images) for phase 14."""
+    matcher's arguments in frame ``CAPTURE_FRAME``, and the orbit (dataset,
+    gray images and depth maps) for phases 14 and 19."""
     from orb_slam_2_ros_tpu_torch.config import SENSOR_RGBD, SlamConfig
     from orb_slam_2_ros_tpu_torch.frontend import matcher
     from orb_slam_2_ros_tpu_torch.io import ate_rmse, render_frames
@@ -360,7 +373,7 @@ def run_main_path(torch, match_kernel, bench, timing):
         raise AssertionError(
             f"{tracker.n_kfs} keyframes and {int(tracker.map.n_mps)} map "
             f"points; an exact matcher gives {N_KEYFRAMES} and {N_MAP_POINTS}")
-    return launches, path_args, (ds, grays)
+    return launches, path_args, (ds, grays, depths)
 
 
 def render_loop():
@@ -804,8 +817,9 @@ def run_stereo(torch, match_kernel, bench, timing):
     """Phase 13: the reference bench's two stereo passes at full width,
     then the stereo forced loss. Returns the kernel launches of both
     passes, those of the forced loss and of each of its relocalization
-    attempts, and the matcher's arguments in the four calls of frame
-    ``CAPTURE_FRAME``."""
+    attempts, the matcher's arguments in the four calls of frame
+    ``CAPTURE_FRAME``, and the stereo pairs (dataset, left and right
+    images) for phase 19."""
     from orb_slam_2_ros_tpu_torch.config import SENSOR_STEREO, SlamConfig
     from orb_slam_2_ros_tpu_torch.frontend import matcher
     from orb_slam_2_ros_tpu_torch.io import ate_rmse, render_frames
@@ -877,7 +891,7 @@ def run_stereo(torch, match_kernel, bench, timing):
     check_pools(system.tracker.map)
     loss_launches, loss_attempts = run_stereo_loss(torch, match_kernel, cfg)
     return (track_launches + sys_launches, loss_launches, loss_attempts,
-            path_args)
+            path_args, (ds, lefts, rights))
 
 
 def run_stereo_loss(torch, match_kernel, cfg):
@@ -992,7 +1006,7 @@ def run_mono(torch, match_kernel, bench, timing, orbit):
     from orb_slam_2_ros_tpu_torch.pipeline.slam import System
     from orb_slam_2_ros_tpu_torch.pipeline.tracking import OK
 
-    ds, grays = orbit
+    ds, grays, _ = orbit
     n = len(grays)
     cfg = SlamConfig(sensor=SENSOR_MONOCULAR)
     system = System(cfg, enable_loop_closing=False)
@@ -1717,6 +1731,164 @@ def run_mesh_cli():
         raise AssertionError(f"the mesh CLI failed: {out.stderr[-2000:]}")
 
 
+def _bench_seq(slam_bench, ds, grays, auxs):
+    """A rendered sequence as the bench module's ``_CachedSeq``."""
+    gt = [ds.gt_pose_wc(i) for i in range(len(grays))]
+    return slam_bench._CachedSeq(grays, auxs, np.asarray(ds.timestamps),
+                                 np.stack([g[0] for g in gt]),
+                                 np.stack([g[1] for g in gt]))
+
+
+def _records_differ(a, b):
+    """The frame ids at which two runs' records differ in any field."""
+    import dataclasses
+
+    def same(x, y):
+        if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+            return np.array_equal(x, y)
+        return x == y
+    return [ra.frame_id for ra, rb in zip(a, b)
+            if not all(same(getattr(ra, f.name), getattr(rb, f.name))
+                       for f in dataclasses.fields(ra))]
+
+
+def run_bench(torch, match_kernel, orbit, stereo_seq, loop_seq, voc):
+    """Phase 19: the passes of ``python -m orb_slam_2_ros_tpu_torch.bench``
+    on the sequences of phases 5, 13 and 7 (RGB-D and stereo tracking only,
+    mono), then the bench's warm-up-and-reset protocol on the loop's first
+    ``BENCH_RESET_FRAMES`` frames. Returns the kernel launches of the phase
+    and its numbers."""
+    from orb_slam_2_ros_tpu_torch import bench as slam_bench
+    from orb_slam_2_ros_tpu_torch.config import (SENSOR_MONOCULAR,
+                                                 SENSOR_RGBD, SENSOR_STEREO,
+                                                 SlamConfig)
+    from orb_slam_2_ros_tpu_torch.io import ate_rmse
+    from orb_slam_2_ros_tpu_torch.pipeline import loop_closing
+    from orb_slam_2_ros_tpu_torch.pipeline.slam import System
+    from orb_slam_2_ros_tpu_torch.pipeline.tracking import OK
+
+    t_phase = time.perf_counter()
+    out = {"fps": {}, "launches": {}}
+
+    def tracking_only(name, cfg, seq):
+        n = len(seq)
+        match_kernel.LAUNCHES = 0
+        fps, tracker, recs = slam_bench.bench_tracker_only(
+            cfg, seq, n, f"bench: {name} tracking")
+        launches = match_kernel.LAUNCHES
+        warm = slam_bench.N_WARM_CHUNKS * tracker.chunk
+        n_ok = sum(r.state == OK for r in recs[warm:])
+        ate = float(ate_rmse(np.stack([r.c_w for r in recs]),
+                             np.stack([seq.gt_pose_wc(i)[1]
+                                       for i in range(n)])))
+        log(f"bench: {name} tracking only: {n_ok}/{n - warm} timed frames "
+            f"OK, ATE {ate:.6f} m over all {n}, {fps:.2f} fps, {launches} "
+            f"matcher kernel launches")
+        if n_ok != n - warm:
+            raise AssertionError(f"{name}: {n_ok} of {n - warm} timed OK")
+        if launches != 4 * n:
+            raise AssertionError(f"{name} tracker launched {launches}, the "
+                                 f"path makes {4 * n}")
+        out["fps"][f"{name}_tracking"] = fps
+        out["launches"][f"{name}_tracking"] = launches
+        return ate
+
+    ds, grays, depths = orbit
+    orbit_seq = _bench_seq(slam_bench, ds, grays, depths)
+    ate = tracking_only("rgbd", SlamConfig(sensor=SENSOR_RGBD), orbit_seq)
+    if not ate < ATE_LIMIT_M:
+        raise AssertionError(f"bench RGB-D tracking ATE {ate} m")
+    tracking_only("stereo", SlamConfig(sensor=SENSOR_STEREO),
+                  _bench_seq(slam_bench, *stereo_seq))
+
+    match_kernel.LAUNCHES = 0
+    fps, n_ok, system = slam_bench.bench_mono(
+        SlamConfig(sensor=SENSOR_MONOCULAR), orbit_seq)
+    launches = match_kernel.LAUNCHES
+    states = [r.state for r in system.records]
+    first_ok = states.index(OK) if OK in states else None
+    # every frame after the initializing one goes through the tracker
+    tracked = len(states) - MONO_INIT_FRAME - 1
+    steps = system.mapper.n_executed
+    n_timed = len(orbit_seq) - slam_bench.N_MONO_WARM
+    log(f"bench: mono: first OK frame {first_ok}, {n_ok}/{n_timed} timed "
+        f"frames OK, {fps:.2f} fps, {steps} mapping steps, {launches} "
+        f"matcher kernel launches")
+    if first_ok != MONO_INIT_FRAME or n_ok != n_timed:
+        raise AssertionError(f"bench mono: first OK {first_ok}, {n_ok} of "
+                             f"{n_timed} OK")
+    if launches != 4 * tracked + 8 * steps:
+        raise AssertionError(f"bench mono launched {launches}, the path "
+                             f"makes {4 * tracked} + {8 * steps}")
+    out["fps"]["mono_system"] = fps
+    out["launches"]["mono_system"] = launches
+
+    # the reset check: the bench's protocol (bench.py:187-200) on a
+    # shorter stretch, its second run held to its first
+    cfg, ds_l, grays_l, depths_l = loop_seq
+    n = BENCH_RESET_FRAMES
+    system = System(cfg, vocab=voc)
+    chunks = slam_bench._wire_chunks(system.tracker, grays_l[:n],
+                                     depths_l[:n], ds_l.timestamps[:n])
+    lc = system.loop_closer
+    match_kernel.LAUNCHES = 0
+    runs = []
+    for attempt in range(2):
+        if attempt:
+            system.reset()
+            system.tracker.flush()
+            system.tracker.records.clear()
+            system._frame_counter = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for chunk in chunks:
+            system.track_chunk(*chunk)
+        system.flush()
+        torch.cuda.synchronize()
+        m = system.tracker.map
+        runs.append({"records": list(system.records),
+                     "n_kfs": system.tracker.n_kfs, "n_mps": int(m.n_mps),
+                     "map": {f: v.clone() for f, v in m._asdict().items()},
+                     "fps": n / (time.perf_counter() - t0)})
+    launches = match_kernel.LAUNCHES
+    steps = system.mapper.n_executed
+    first, second = runs
+    differ = _records_differ(first["records"], second["records"])
+    map_differ = [f for f in first["map"]
+                  if not torch.equal(first["map"][f], second["map"][f])]
+    n_ok = [sum(r.state == OK for r in run["records"]) for run in runs]
+    log(f"bench: reset check over the loop's first {n} frames with loop "
+        f"closing on: OK {n_ok}, keyframes {first['n_kfs']} and "
+        f"{second['n_kfs']}, map points {first['n_mps']} and "
+        f"{second['n_mps']}, {len(differ)} records differ, map fields that "
+        f"differ {map_differ}, {first['fps']:.2f} and {second['fps']:.2f} "
+        f"fps, {lc.n_ladders} ladders, {launches} matcher kernel launches")
+    if (differ or len(first["records"]) != n
+            or len(second["records"]) != n):
+        raise AssertionError(f"after reset() the records differ at {differ}")
+    if (first["n_kfs"], first["n_mps"]) != (second["n_kfs"],
+                                            second["n_mps"]) or map_differ:
+        raise AssertionError(f"after reset() the map differs: counts "
+                             f"{first['n_kfs']}, {first['n_mps']} and "
+                             f"{second['n_kfs']}, {second['n_mps']}, "
+                             f"fields {map_differ}")
+    if n_ok != [n, n]:
+        raise AssertionError(f"reset check: OK frames {n_ok} of {n}")
+    expected = (8 * n + 8 * steps
+                + loop_closing.LADDER_LAUNCHES * lc.n_ladders
+                + loop_closing.N_FUSE_ROWS * lc.n_corrections)
+    if launches != expected:
+        raise AssertionError(f"the reset check launched {launches}, the "
+                             f"path makes {expected}")
+    out["launches"]["reset_check"] = launches
+    out["reset_check"] = {"frames": n, "keyframes": first["n_kfs"],
+                          "map_points": first["n_mps"],
+                          "fps": [first["fps"], second["fps"]]}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"bench: phase 19 took {out['seconds']:.1f} s")
+    return sum(out["launches"].values()), out
+
+
 def check_and_time(torch, match_kernel, bench, timing, cases, floor, err,
                    timed):
     """The kernel on captured arguments: equal to the plain version, and
@@ -1732,6 +1904,7 @@ def check_and_time(torch, match_kernel, bench, timing, cases, floor, err,
 
 
 def main():
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; "
@@ -1826,7 +1999,8 @@ def main():
     # 13. the stereo sensor at full width, its frame's four calls, and
     # its forced loss
     (stereo_launches, stereo_loss_launches, stereo_attempts,
-     stereo_args) = run_stereo(torch, match_kernel, bench, timing)
+     stereo_args, stereo_seq) = run_stereo(torch, match_kernel, bench,
+                                           timing)
     err = check_and_time(torch, match_kernel, bench, timing, stereo_args,
                          floor, err, timed)
 
@@ -1874,6 +2048,10 @@ def main():
         multihost.shutdown()
     run_mesh_cli()
 
+    # 19. the bench module's passes and its warm-up-and-reset protocol
+    bench_launches, bench_numbers = run_bench(torch, match_kernel, orbit,
+                                              stereo_seq, loop_seq, voc)
+
     log(f"matcher kernel launches: {launches} on the tracking path, "
         f"{map_launches} on the mapping path, {full_launches} on the full "
         f"system's path ({lc_launches} of them by loop closing), "
@@ -1883,7 +2061,7 @@ def main():
         f"loss, {mono_launches} on the mono path, {loc_launches} on the "
         f"localization path, {tum_launches} on the CLI's mini TUM run, "
         f"{cli_synth_launches} on the CLI's synthetic run, {mesh_launches} "
-        f"on the mesh system's path")
+        f"on the mesh system's path, {bench_launches} in the bench's passes")
     by_path = {"tracking": launches, "mapping": map_launches,
                "full_system": full_launches,
                "loop_closing_within_full_system": lc_launches,
@@ -1896,12 +2074,13 @@ def main():
                "localization_relocalization_attempts": loc_attempts,
                "cli_mini_tum": tum_launches,
                "cli_synthetic": cli_synth_launches,
-               "mesh_system": mesh_launches}
+               "mesh_system": mesh_launches, "bench": bench_launches}
     launches += (map_launches + full_launches + reloc_path_launches
                  + stereo_launches + stereo_loss_launches + mono_launches
                  + loc_launches + tum_launches + cli_synth_launches
-                 + mesh_launches)
+                 + mesh_launches + bench_launches)
 
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     # the headline numbers are the local-map search's, the largest call of
     # a frame: random gates at its shape; "cases" holds every case
     main_case = timed[1]
@@ -1922,7 +2101,7 @@ def main():
         "mono_init_s": mono_init_s, "merge": merge,
         "orbvoc_load_s": vocab_load_s,
         "orbvoc_transform_ms": vocab_transform_ms, "cli": cli,
-        "mesh": mesh_numbers,
+        "mesh": mesh_numbers, "bench": bench_numbers,
         "cases": timed}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

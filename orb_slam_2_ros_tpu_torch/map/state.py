@@ -27,6 +27,7 @@ from orb_slam_2_ros_tpu_torch.config import SlamConfig
 from orb_slam_2_ros_tpu_torch.frontend.frame import Frame
 from orb_slam_2_ros_tpu_torch.geometry import se3
 from orb_slam_2_ros_tpu_torch.ops.hamming import popcount
+from orb_slam_2_ros_tpu_torch.ops.segment import index_add, segment_sum
 
 NOBS_DESC = 8   # newest observations kept per point for the descriptor choice
 
@@ -318,9 +319,9 @@ def commit_keyframe(state: MapState, frame: Frame, q, t, frame_id,
     max_d = dist * sf
     min_d = max_d / sf_span
 
-    dir_sum = pad_row(state.mp_dir_sum).index_add(
-        0, mp_ids, torch.where(obs_mask[:, None], dirs,
-                               torch.zeros_like(dirs)))[:M]
+    dir_sum = index_add(
+        pad_row(state.mp_dir_sum), mp_ids,
+        torch.where(obs_mask[:, None], dirs, torch.zeros_like(dirs)))[:M]
     # ring-buffer slot from the PRE-increment count
     slot = (state.mp_obs_cnt[kp_c] % NOBS_DESC).to(i64)
     flat_idx = k * P + torch.arange(P, dtype=torch.int32, device=dev)
@@ -481,8 +482,10 @@ def refresh_point_stats(state: MapState, cfg: SlamConfig) -> MapState:
     dist = torch.linalg.norm(d, dim=-1)
     dirs = d / torch.clamp(dist[:, None], min=1e-9)
 
-    nsum = torch.zeros((M + 1, 3), dtype=torch.float32, device=dev).index_add(
-        0, tgt, torch.where(ok[:, None], dirs, torch.zeros_like(dirs)))[:M]
+    # a point's observations add onto one row: in a fixed order, so that
+    # the normals are the same on every run
+    nsum = segment_sum(tgt, torch.where(ok[:, None], dirs,
+                                        torch.zeros_like(dirs)), M + 1)[:M]
     normal = nsum / torch.clamp(
         torch.linalg.norm(nsum, dim=-1, keepdim=True), min=1e-9)
 

@@ -159,6 +159,36 @@ def test_cuda_mapping_step_matches_cpu(cuda):
     assert (gpu["last"] == cpu["last"]).mean() >= 0.98
 
 
+def test_cuda_point_statistics_are_the_same_on_every_run(cuda):
+    """A point's viewing directions add onto one row of the map, many per
+    row: on the keyframe commit (two keypoints can hold one point) and when
+    a mapping step rebuilds the statistics from every observation. On the
+    card both sums take one order on every run, so two runs give the same
+    bits, and they agree with the CPU's sums within float rounding."""
+    from orb_slam_2_ros_tpu_torch.map.state import refresh_point_stats
+
+    cfg = small_cfg()
+    n = 40
+    ds = SyntheticRGBD(cfg, n_frames=n, seed=0)
+    grays = np.stack([ds[i][0] for i in range(n)])
+    depths = np.stack([ds[i][1] for i in range(n)])
+    maps = []
+    for _ in range(2):
+        tracker = Tracker(cfg, device=cuda)
+        tracker.process_chunk(grays, depths, ds.timestamps)
+        maps.append(tracker.carry.m)
+    assert int(maps[0].n_kfs) >= 3
+    for f in ("mp_dir_sum", "mp_normal", "mp_pos"):
+        assert torch.equal(getattr(maps[0], f), getattr(maps[1], f)), f
+    m = maps[0]
+    a, b = refresh_point_stats(m, cfg), refresh_point_stats(m, cfg)
+    for f in ("mp_dir_sum", "mp_normal"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    want = refresh_point_stats(MapState(*(v.cpu() for v in m)), cfg)
+    np.testing.assert_allclose(a.mp_dir_sum.cpu().numpy(),
+                               want.mp_dir_sum.numpy(), atol=1e-5)
+
+
 def test_cuda_full_system_matches_cpu(cuda):
     """``System`` with loop closing on (its default) chooses the card, keeps
     the loop closer's state there, and over 24 frames tracks, maps and

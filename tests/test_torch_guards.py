@@ -39,7 +39,7 @@ def test_port_imports_no_jax():
                 "presets", "io.datasets", "io.trajectory", "geometry.rectify",
                 "native", "pipeline.frame_drawer", "parallel",
                 "parallel.mesh", "parallel.multihost", "parallel.dist_ba",
-                "parallel.dist_pose"):
+                "parallel.dist_pose", "bench"):
         assert f"{pkg}.{new}" in mods, new
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -209,15 +209,17 @@ def _permuted_twice(fn, n, seed=0):
 
 def test_float_sums_with_duplicate_targets_do_not_depend_on_the_order():
     """Where loop closing adds floats onto repeated targets (the pose
-    graph's blocks, the global BA's landmark sums, the BoW weights), each
-    sum goes through ``ops/segment.segment_sum`` (PyTorch's deterministic
+    graph's blocks, the global BA's landmark sums, the BoW weights), and
+    where the map adds a point's viewing directions (``commit_keyframe``,
+    ``refresh_point_stats``), each sum goes through ``ops/segment``'s
+    ``segment_sum`` or ``index_add`` (PyTorch's deterministic
     ``index_add_``: the same result on every run of the same inputs) or an
     exact form. Here each runs twice on the CPU, the second time with its
     contributions in another order: the BoW weights are equal to the last
     bit, the others within 1e-5 (a float sum in another order)."""
     from orb_slam_2_ros_tpu_torch.config import SlamConfig
     from orb_slam_2_ros_tpu_torch.geometry import sim3
-    from orb_slam_2_ros_tpu_torch.ops.segment import segment_sum
+    from orb_slam_2_ros_tpu_torch.ops.segment import index_add, segment_sum
     from orb_slam_2_ros_tpu_torch.place import vocabulary
     from orb_slam_2_ros_tpu_torch.solvers import ba, pose_graph
 
@@ -232,6 +234,15 @@ def test_float_sums_with_duplicate_targets_do_not_depend_on_the_order():
     assert a.shape == b.shape == (7, 12)
     np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-4)
     assert not torch.are_deterministic_algorithms_enabled()     # scoped
+    # onto a base: the base's rows plus their contributions, the base
+    # itself left as it was
+    base = torch.from_numpy(rng.normal(0, 1, (7, 12)).astype(np.float32))
+    kept = base.clone()
+    a, b = _permuted_twice(lambda o: index_add(base, idx[o], vals[o]), 5000)
+    assert torch.equal(a, base.index_add(0, idx, vals))
+    assert torch.equal(base, kept)
+    np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-4)
+    assert not torch.are_deterministic_algorithms_enabled()
 
     # BoW weights: count x idf is exact, so any keypoint order gives the
     # same merged weights per word, bit for bit
