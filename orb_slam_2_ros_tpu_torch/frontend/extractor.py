@@ -30,10 +30,9 @@ from orb_slam_2_ros_tpu_torch.ops.image import (gaussian_blur_7x7,
 
 HALF_PATCH = 15
 # the public learned rBRIEF pattern (Rublee et al. 2011, OpenCV's
-# bit_pattern_31_), stored once in the reference package
-_PATTERN_PATH = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "orb_slam_2_ros_tpu", "ops", "data", "brief_pattern.npy")
+# bit_pattern_31_): 512 (x, y) int8 offsets, the port's own copy
+_PATTERN_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "data", "brief_pattern.npy")
 
 
 class Keypoints(NamedTuple):

@@ -1,20 +1,25 @@
 """The port keeps its own copies of the reference's configuration, synthetic
-sequence and trajectory metric. These tests hold each copy against its
-original, so that the two cannot drift: configurations field by field
-through ``dataclasses.asdict``, rendered frames bit for bit, ATE to 1e-12.
+sequence, trajectory metric and rBRIEF pattern. These tests hold each copy
+against its original, so that the two cannot drift: configurations field by
+field through ``dataclasses.asdict``, rendered frames bit for bit, ATE to
+1e-12, the pattern element by element.
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
+import torch
 
 from orb_slam_2_ros_tpu import config as jconfig
+from orb_slam_2_ros_tpu.frontend import extractor as jextractor
 from orb_slam_2_ros_tpu.io import synthetic as jsyn
 from orb_slam_2_ros_tpu.io import trajectory as jtraj
 from orb_slam_2_ros_tpu_torch import config as tconfig
 from orb_slam_2_ros_tpu_torch import convert
 from orb_slam_2_ros_tpu_torch import io as tio
+from orb_slam_2_ros_tpu_torch.frontend import extractor as textractor
 from orb_slam_2_ros_tpu_torch.io import synthetic as tsyn
 from orb_slam_2_ros_tpu_torch.io import trajectory as ttraj
 
@@ -149,3 +154,22 @@ def test_ate_rmse_agrees(with_scale):
         np.testing.assert_allclose(t, j, rtol=0, atol=1e-12)
     if with_scale:
         assert ta < 0.02        # the similarity is recovered
+
+
+def test_brief_pattern_equals_the_reference():
+    """The port's own copy of the 512 rBRIEF offsets (OpenCV's
+    ``bit_pattern_31_``) against the array the reference's extractor loads:
+    the same shape, type and every element; and the copy is the port's
+    file, not the reference's."""
+    ref = jextractor._brief_pattern()
+    port = np.load(textractor._PATTERN_PATH)
+    assert ref.shape == port.shape == (512, 2)
+    assert ref.dtype == port.dtype
+    np.testing.assert_array_equal(port, ref)
+    assert os.path.dirname(textractor._PATTERN_PATH).startswith(
+        os.path.dirname(textractor.__file__))
+    assert not os.path.samefile(textractor._PATTERN_PATH,
+                                jextractor._PATTERN_PATH)
+    pat = textractor._brief_pattern("cpu")
+    assert pat.dtype == torch.float32
+    np.testing.assert_array_equal(pat.numpy(), ref.astype(np.float32))

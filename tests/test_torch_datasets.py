@@ -9,15 +9,28 @@ same numpy or integer code over the same files); the presets equal field
 by field; the property checks of ``tests/test_rectify.py`` keep that file's
 bounds. Frames are written with OpenCV and PIL, which the port itself never
 imports.
+
+The reference's loaders decode depth natively when its library loads
+(rounded to millimetres, then scaled by 1e-3) and with OpenCV otherwise
+(divided by the factor): the two differ by up to 4e-4 m. The port decodes as
+the native path does, so the comparisons hold it against the reference's
+native decode whatever the reference's lazy build gave this worker: where
+``native.load()`` cached ``None`` (a half-written library seen while another
+process built it), ``reference_native`` builds the reference's sources with
+its own Makefile into a private directory and loads that.
 """
 
+import contextlib
 import dataclasses
 import os
+import shutil
+import subprocess
 
 import numpy as np
 import pytest
 import torch
 
+from orb_slam_2_ros_tpu import native as jnative
 from orb_slam_2_ros_tpu import presets as jpresets
 from orb_slam_2_ros_tpu.config import SENSOR_MONOCULAR, SENSOR_RGBD, SENSOR_STEREO
 from orb_slam_2_ros_tpu.geometry import rectify as jrect
@@ -48,6 +61,32 @@ distortion_coefficients: [-0.2834, 0.0739, 0.00019, 1.76e-05]
 """
 
 
+@contextlib.contextmanager
+def native_reference(build_dir):
+    """The reference's native library loaded for the duration: as its lazy
+    build left it if that loaded, else built afresh from its sources into
+    ``build_dir``. Only this module's state is patched, and restored."""
+    with pytest.MonkeyPatch.context() as mp:
+        if jnative.load() is None:
+            for name in ("Makefile", "vocab_loader.cc", "dataset_loader.cc"):
+                shutil.copy(os.path.join(jnative._DIR, name), build_dir)
+            out = subprocess.run(["make", "-C", str(build_dir), "-s"],
+                                 capture_output=True, text=True, timeout=300)
+            assert out.returncode == 0, out.stderr
+            mp.setattr(jnative, "_SO",
+                       os.path.join(str(build_dir), "libslamnative.so"))
+            mp.setattr(jnative, "_tried", False)
+            mp.setattr(jnative, "_lib", None)
+            assert jnative.load() is not None
+        yield jnative.load()
+
+
+@pytest.fixture
+def reference_native(tmp_path_factory):
+    with native_reference(tmp_path_factory.mktemp("ref_native")) as lib:
+        yield lib
+
+
 def _png(path, value, size=(32, 24), depth16=False):
     img = np.full((size[1], size[0]), value,
                   np.uint16 if depth16 else np.uint8)
@@ -74,7 +113,7 @@ def test_associate_like_the_reference():
     assert tds.associate(ta, tb) == jds.associate(ta, tb)
 
 
-def test_tum_loader_like_the_reference(tmp_path):
+def test_tum_loader_like_the_reference(tmp_path, reference_native):
     root = str(tmp_path)
     os.makedirs(f"{root}/rgb")
     os.makedirs(f"{root}/depth")
@@ -198,7 +237,7 @@ def test_kitti_calibration_like_the_reference(tmp_path):
     assert cal["width"] == 1241 and cal["height"] == 376
 
 
-def test_mini_tum_like_the_reference():
+def test_mini_tum_like_the_reference(reference_native):
     """The checked-in sequence through both loaders, and the prefetcher's
     wire-format frames against the indexed float frames."""
     ds = tds.TumRGBD(MINI_TUM)
@@ -216,6 +255,29 @@ def test_mini_tum_like_the_reference():
             .astype(np.float32), depth)
     assert i == len(ds) - 1
     pf.close()
+
+
+@pytest.mark.parametrize("case", ["tum_loader", "mini_tum"])
+def test_reference_comparisons_survive_a_lost_native_build(
+        case, tmp_path, tmp_path_factory, monkeypatch):
+    """A worker whose ``native.load()`` cached ``None``, as one that saw
+    another process's half-written library does: the reference falls back
+    to OpenCV and the comparison fails; with ``native_reference`` it holds,
+    and the worker's cached state comes back as it was."""
+    monkeypatch.setattr(jnative, "_tried", True)
+    monkeypatch.setattr(jnative, "_lib", None)
+    run = {"tum_loader": lambda: test_tum_loader_like_the_reference(
+               tmp_path / "a", None),
+           "mini_tum": lambda: test_mini_tum_like_the_reference(None)}[case]
+    os.makedirs(tmp_path / "a")
+    with pytest.raises(AssertionError, match="Max absolute difference"):
+        run()
+    shutil.rmtree(tmp_path / "a")
+    os.makedirs(tmp_path / "a")
+    with native_reference(tmp_path_factory.mktemp("ref_native")) as lib:
+        assert lib is not None
+        run()
+    assert jnative._tried and jnative._lib is None
 
 
 def _rig():

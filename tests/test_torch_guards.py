@@ -1,9 +1,12 @@
-"""Guards of the PyTorch port: it never imports JAX nor the JAX package, it
-runs on the card unless asked for the CPU, and it turns TF32 off."""
+"""Guards of the PyTorch port: it never imports JAX nor the JAX package and
+reads no file of it, it runs on the card unless asked for the CPU, and it
+turns TF32 off."""
 
+import ast
 import os
 import pkgutil
 import re
+import shutil
 import subprocess
 import sys
 
@@ -74,6 +77,121 @@ def test_port_sources_name_no_reference_import():
             bad += [f"{os.path.relpath(path, REPO)}: {m.group(0).strip()}"
                     for m in pat.finditer(f.read())]
     assert not bad, bad
+
+
+def _port_sources():
+    """chip_smoke.py and every source of the port (Python, CUDA, C++)."""
+    pkg_dir = os.path.dirname(orb_slam_2_ros_tpu_torch.__file__)
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, dirs, files in os.walk(pkg_dir):
+        for skip in ("_build", "__pycache__"):
+            if skip in dirs:
+                dirs.remove(skip)
+        paths += [os.path.join(root, f) for f in files
+                  if f.endswith((".py", ".cu", ".cc", ".h"))]
+    return paths
+
+
+# the JAX package's directory as a path component: the bare name, or the
+# name before or after a separator ("orb_slam_2_ros_tpu/ops", "../orb_...")
+_REF_DIR = re.compile(r"(^|[/\\])orb_slam_2_ros_tpu([/\\]|$)")
+# a file:line label naming the reference's code (the kernels line's
+# "replaces"), which opens nothing
+_FILE_LINE = re.compile(r"^[\w/.]+\.\w+:\d+$")
+
+
+def _paths_into_reference(source):
+    """The string literals of a Python source, docstrings left out, that
+    name the JAX package's directory as a path component."""
+    tree = ast.parse(source)
+    docs = {id(n.body[0].value) for n in ast.walk(tree)
+            if isinstance(n, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                              ast.AsyncFunctionDef))
+            and n.body and isinstance(n.body[0], ast.Expr)
+            and isinstance(n.body[0].value, ast.Constant)}
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and id(n) not in docs and _REF_DIR.search(n.value)
+            and not _FILE_LINE.match(n.value)]
+
+
+def test_port_sources_build_no_path_into_the_reference():
+    """No source of the port, nor chip_smoke.py, names the JAX package's
+    directory in a string literal (Python) or a string or include (CUDA,
+    C++): the port reads no data file of the reference, as it imports no
+    module of it. The check itself catches the form the rBRIEF pattern's
+    path once had."""
+    assert _paths_into_reference(
+        'p = os.path.join(root, "orb_slam_2_ros_tpu", "ops", "data")\n'
+        'q = root + "/orb_slam_2_ros_tpu/ops/data/brief_pattern.npy"\n')
+    assert not _paths_into_reference(
+        '"""Port of ``orb_slam_2_ros_tpu/frontend/extractor.py``."""\n'
+        'k = {"replaces": "orb_slam_2_ros_tpu/ops/pallas_match.py:121"}\n'
+        'm = "orb_slam_2_ros_tpu_torch"\n')
+    paths = _port_sources()
+    assert len(paths) >= 40
+    c_string = re.compile(r'"[^"\n]*"|<[^>\n]*>')
+    bad = []
+    for path in paths:
+        with open(path) as f:
+            src = f.read()
+        if path.endswith(".py"):
+            found = _paths_into_reference(src)
+        else:
+            found = [m.group(0) for m in c_string.finditer(src)
+                     if _REF_DIR.search(m.group(0).strip('"<>'))]
+        bad += [f"{os.path.relpath(path, REPO)}: {v!r}" for v in found]
+    assert not bad, bad
+
+
+_FRAME_CODE = """
+import sys
+import numpy as np
+import torch
+sys.modules["orb_slam_2_ros_tpu"] = None     # the JAX package cannot import
+import orb_slam_2_ros_tpu_torch
+from orb_slam_2_ros_tpu_torch.config import (CameraConfig, OrbConfig,
+                                             SlamConfig)
+from orb_slam_2_ros_tpu_torch.frontend import frame
+from orb_slam_2_ros_tpu_torch.io.synthetic import SyntheticRGBD
+torch.set_num_threads(2)
+cfg = SlamConfig(camera=CameraConfig(width=320, height=240, fx=260.0,
+                                     fy=260.0, cx=159.5, cy=119.5, bf=20.0,
+                                     th_depth=50.0),
+                 orb=OrbConfig(n_features=500, n_levels=8, max_kps=640))
+gray, depth = SyntheticRGBD(cfg, n_frames=2, seed=0)[1]
+f = frame.build_rgbd(torch.from_numpy(gray.astype(np.float32)),
+                     torch.from_numpy(depth.astype(np.float32)), cfg)
+np.savez(sys.argv[1], desc=f.kps.desc.numpy(), valid=f.kps.valid.numpy(),
+         package=orb_slam_2_ros_tpu_torch.__file__)
+"""
+
+
+def test_port_copied_alone_builds_a_frame(tmp_path):
+    """The port's package copied alone into a directory without the JAX
+    package builds an RGB-D frame on the CPU (the rBRIEF pattern among its
+    data), and its descriptors equal the in-tree port's bit for bit."""
+    alone = tmp_path / "alone"
+    shutil.copytree(os.path.dirname(orb_slam_2_ros_tpu_torch.__file__),
+                    alone / "orb_slam_2_ros_tpu_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    env = dict(os.environ, PYTHONPATH=str(alone))
+    out = {}
+    for where, cwd in (("alone", alone), ("tree", REPO)):
+        path = str(tmp_path / f"{where}.npz")
+        run = subprocess.run(
+            [sys.executable, "-c", _FRAME_CODE, path], cwd=str(cwd),
+            env=env if where == "alone" else dict(os.environ,
+                                                  PYTHONPATH=REPO),
+            capture_output=True, text=True, timeout=300)
+        assert run.returncode == 0, run.stderr
+        out[where] = np.load(path)
+    assert str(out["alone"]["package"]).startswith(str(alone))
+    assert str(out["tree"]["package"]).startswith(REPO)
+    assert not os.path.exists(alone / "orb_slam_2_ros_tpu")
+    assert out["tree"]["valid"].sum() > 100
+    np.testing.assert_array_equal(out["alone"]["valid"], out["tree"]["valid"])
+    np.testing.assert_array_equal(out["alone"]["desc"], out["tree"]["desc"])
 
 
 def test_tracker_defaults_to_the_card_and_raises_without_one(monkeypatch):
