@@ -27,6 +27,7 @@ from orb_slam_2_ros_tpu_torch.config import OrbConfig
 from orb_slam_2_ros_tpu_torch.ops import fast as fast_ops
 from orb_slam_2_ros_tpu_torch.ops.image import (gaussian_blur_7x7,
                                                 quantize_u8, resize_linear)
+from orb_slam_2_ros_tpu_torch.pipeline.metrics import span
 
 HALF_PATCH = 15
 # the public learned rBRIEF pattern (Rublee et al. 2011, OpenCV's
@@ -166,6 +167,7 @@ def extract(img: torch.Tensor, cfg: OrbConfig) -> Keypoints:
     return kps
 
 
+@span("frontend.extract")
 def extract_with_pyramid(img: torch.Tensor, cfg: OrbConfig):
     """extract() that also returns the (unblurred) pyramid level images."""
     budgets = level_budgets(cfg)
@@ -180,16 +182,20 @@ def extract_with_pyramid(img: torch.Tensor, cfg: OrbConfig):
         if lvl > 0:
             scale = cfg.scale_factor ** lvl
             sz = (int(round(H / scale)), int(round(W / scale)))
-            level_img = quantize_u8(resize_linear(level_img, sz))
+            with span("frontend.resize_linear"):
+                level_img = quantize_u8(resize_linear(level_img, sz))
         pyramid.append(level_img)
         Wl = level_img.shape[1]
 
-        resp_map = fast_ops.detect(
-            fast_ops.fast_score_map(level_img),
-            threshold=float(cfg.ini_th_fast),
-            min_threshold=float(cfg.min_th_fast),
-            cell=cfg.fast_cell, border=cfg.edge_threshold)
-        vals, idx = _top_budget(resp_map.reshape(-1), budgets[lvl])
+        with span("frontend.fast_score_map"):
+            score = fast_ops.fast_score_map(level_img)
+        with span("frontend.detect"):
+            resp_map = fast_ops.detect(
+                score, threshold=float(cfg.ini_th_fast),
+                min_threshold=float(cfg.min_th_fast),
+                cell=cfg.fast_cell, border=cfg.edge_threshold)
+        with span("frontend.budget_cut"):
+            vals, idx = _top_budget(resp_map.reshape(-1), budgets[lvl])
         y = idx // Wl
         x = idx % Wl
         xs_l.append(x)
@@ -198,10 +204,13 @@ def extract_with_pyramid(img: torch.Tensor, cfg: OrbConfig):
         octs.append(torch.full((budgets[lvl],), lvl, dtype=torch.int32,
                                device=dev))
 
-        blurred = quantize_u8(gaussian_blur_7x7(level_img))
-        angle_l = ic_angles_at(level_img, x, y)
+        with span("frontend.gaussian_blur"):
+            blurred = quantize_u8(gaussian_blur_7x7(level_img))
+        with span("frontend.ic_angles"):
+            angle_l = ic_angles_at(level_img, x, y)
         angles.append(angle_l)
-        descs.append(_descriptors(blurred, x, y, angle_l))
+        with span("frontend.descriptors"):
+            descs.append(_descriptors(blurred, x, y, angle_l))
 
     x = torch.cat(xs_l)
     y = torch.cat(ys_l)

@@ -26,6 +26,7 @@ from orb_slam_2_ros_tpu_torch.config import SlamConfig
 from orb_slam_2_ros_tpu_torch.frontend.extractor import Keypoints
 from orb_slam_2_ros_tpu_torch.ops.hamming import INF_DIST, hamming_matrix
 from orb_slam_2_ros_tpu_torch.ops.ties import first_argmax
+from orb_slam_2_ros_tpu_torch.pipeline.metrics import span
 
 _W = 5           # SAD half-window (Frame.cc:570)
 _SLIDE = 5       # disparity slide range L (Frame.cc:579)
@@ -77,6 +78,7 @@ def _first_argmin(x: torch.Tensor) -> torch.Tensor:
     return first_argmax(-x)
 
 
+@span("frontend.stereo")
 def compute_stereo_matches(kl: Keypoints, kr: Keypoints,
                            pyr_l: FlatPyramid, pyr_r: FlatPyramid,
                            cfg: SlamConfig):

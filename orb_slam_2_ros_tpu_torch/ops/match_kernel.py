@@ -27,6 +27,7 @@ import torch
 
 from orb_slam_2_ros_tpu_torch import _build
 from orb_slam_2_ros_tpu_torch.ops.hamming import best_two, hamming_matrix
+from orb_slam_2_ros_tpu_torch.pipeline.metrics import span
 
 MAX_COLS = 1 << 15      # keys pack the column into 15 bits
 LAUNCHES = 0            # kernel launches since import (or the last reset)
@@ -133,9 +134,11 @@ def masked_best_two_cuda(desc_rows, row_meta, desc_cols, col_meta,
                                col_meta)
 
 
+@span("b1")
 def masked_best_two(desc_rows, row_meta, desc_cols, col_meta):
     """Dispatch by device: the plain version for CPU tensors, the kernel
-    for CUDA tensors (which raises rather than fall back)."""
+    for CUDA tensors (which raises rather than fall back). Its span ``b1``
+    holds the host side of the call."""
     if desc_rows.device.type == "cpu":
         return masked_best_two_reference(desc_rows, row_meta, desc_cols,
                                          col_meta)

@@ -43,6 +43,7 @@ from orb_slam_2_ros_tpu_torch.map import state as map_state
 from orb_slam_2_ros_tpu_torch.map.state import (pad_row, row, set_row,
                                                 set_rows)
 from orb_slam_2_ros_tpu_torch.parallel import dist_ba
+from orb_slam_2_ros_tpu_torch.pipeline.metrics import span
 from orb_slam_2_ros_tpu_torch.pipeline.mono_init import median_or_one
 from orb_slam_2_ros_tpu_torch.solvers import ba
 
@@ -87,7 +88,8 @@ def create_new_map_points(m: map_state.MapState, cfg: SlamConfig,
     P, M = m.P, m.M
     k = torch.clamp(m.n_kfs - 1, min=0)
     if covis is None:
-        covis = map_state.covisibility(m)
+        with span("mapping.covisibility"):
+            covis = map_state.covisibility(m)
     w_top, idx_top = _best_covisible(covis, k, R)
 
     q_k, t_k = row(m.kf_q, k), row(m.kf_t, k)
@@ -140,16 +142,18 @@ def create_new_map_points(m: map_state.MapState, cfg: SlamConfig,
 
         uv_n, oct_n = row(m.kf_uv, n), row(m.kf_octave, n)
         free_n = row(m.kf_kp_valid, n) & (row(m.kf_mp, n) < 0) & neigh_ok
-        n_to_k, _ = matcher.search_for_triangulation(
-            desc_k, uv_k_all, free_k, row(m.kf_desc, n), uv_n, oct_n, free_n,
-            F12, cfg)
+        with span("mapping.search_for_triangulation"):
+            n_to_k, _ = matcher.search_for_triangulation(
+                desc_k, uv_k_all, free_k, row(m.kf_desc, n), uv_n, oct_n,
+                free_n, F12, cfg)
 
         pair = n_to_k >= 0                          # aligned on n's kp axis
         i_idx = torch.clamp(n_to_k, min=0)
         i_l = i_idx.to(i64)
         uv_k = uv_k_all[i_l]
         P2 = tri.projection_matrix(K_int, q_n, t_n)
-        xw = tri.triangulate_dlt(P1, P2, uv_k, uv_n)
+        with span("mapping.triangulate_dlt"):
+            xw = tri.triangulate_dlt(P1, P2, uv_k, uv_n)
 
         # ---- gate stack (LocalMapping.cc:366-479)
         z1 = tri.depth_in_camera(q_k, t_k, xw)
@@ -279,7 +283,8 @@ def fuse_duplicates(m: map_state.MapState, cfg: SlamConfig, covis=None):
     dev = m.kf_q.device
     k = torch.clamp(m.n_kfs - 1, min=0)
     if covis is None:
-        covis = map_state.covisibility(m)
+        with span("mapping.covisibility"):
+            covis = map_state.covisibility(m)
     w_top, idx_top = _best_covisible(covis, k, n_neigh)
     obs_cnt = map_state.observation_count(m)
     ids = torch.arange(M, dtype=torch.int32, device=dev)
@@ -292,11 +297,12 @@ def fuse_duplicates(m: map_state.MapState, cfg: SlamConfig, covis=None):
             # project src's landmarks into dst and match
             src_mp = row(m.kf_mp, src)
             src_c = torch.clamp(src_mp, min=0).to(i64)
-            kp_to_i, _ = matcher.search_by_projection_pose(
-                m.mp_pos[src_c], m.mp_desc[src_c], row(m.kf_octave, src),
-                (src_mp >= 0) & pair_ok & m.mp_valid[src_c],
-                row(m.kf_q, dst), row(m.kf_t, dst), _kf_as_frame(m, dst),
-                cfg, th=3.0, check_rotation=False)
+            with span("mapping.search_by_projection_pose"):
+                kp_to_i, _ = matcher.search_by_projection_pose(
+                    m.mp_pos[src_c], m.mp_desc[src_c], row(m.kf_octave, src),
+                    (src_mp >= 0) & pair_ok & m.mp_valid[src_c],
+                    row(m.kf_q, dst), row(m.kf_t, dst), _kf_as_frame(m, dst),
+                    cfg, th=3.0, check_rotation=False)
             # kp j of dst matched to src keypoint i -> landmark src_mp[i]
             none = torch.full_like(src_mp, -1)
             cand = torch.where(
@@ -488,6 +494,7 @@ class LocalMapper:
         return int(self._last_n_ba_free)
 
 
+@span("mapping.mapping_step")
 def _mapping_body(m: map_state.MapState, last_mp: torch.Tensor,
                   cfg: SlamConfig, window: int, allow_compact: bool,
                   full: bool, mesh=None):
@@ -501,9 +508,12 @@ def _mapping_body(m: map_state.MapState, last_mp: torch.Tensor,
         # one covisibility build serves triangulation and fusion, as the
         # original computes it once per keyframe (UpdateConnections in
         # ProcessNewKeyFrame)
-        covis = map_state.covisibility(m)
-        m, n_spawned = create_new_map_points(m, cfg, covis=covis)
-        m, n_fused = fuse_duplicates(m, cfg, covis=covis)
+        with span("mapping.covisibility"):
+            covis = map_state.covisibility(m)
+        with span("mapping.create_new_map_points"):
+            m, n_spawned = create_new_map_points(m, cfg, covis=covis)
+        with span("mapping.fuse_duplicates"):
+            m, n_fused = fuse_duplicates(m, cfg, covis=covis)
     n = m.n_kfs
     # compact recent-rows table: only the last W2 keyframes enter the BA
     # edge set (the free window plus fixed recent observers, about the
@@ -535,13 +545,15 @@ def _mapping_body(m: map_state.MapState, last_mp: torch.Tensor,
                m.kf_ur[rows], m.kf_octave[rows], c_mp, c_kpv, m.mp_pos,
                mp_free, cfg)
     phases = (cfg.solver.local_ba_iters1, cfg.solver.local_ba_iters2)
-    if mesh is None:
-        q_c, t_c, pos, edge_inl, _, n_ba_free = ba.windowed_bundle_adjustment(
-            *ba_args, phases=phases, stats=ba_stats)
-    else:
-        q_c, t_c, pos, edge_inl, _, n_ba_free = \
-            dist_ba.distributed_windowed_ba(mesh, *ba_args, phases=phases,
-                                            stats=ba_stats)
+    with span("mapping.windowed_bundle_adjustment"):
+        if mesh is None:
+            q_c, t_c, pos, edge_inl, _, n_ba_free = \
+                ba.windowed_bundle_adjustment(*ba_args, phases=phases,
+                                              stats=ba_stats)
+        else:
+            q_c, t_c, pos, edge_inl, _, n_ba_free = \
+                dist_ba.distributed_windowed_ba(mesh, *ba_args,
+                                                phases=phases, stats=ba_stats)
 
     # write back window poses and drop outlier observations at the
     # standard chi2 gate for every participating row
@@ -579,20 +591,23 @@ def _mapping_body(m: map_state.MapState, last_mp: torch.Tensor,
 
     # redundant-keyframe culling (KeyFrameCulling, LocalMapping.cc:686-767)
     if full:
-        m, n_kf_culled = cull_keyframes(m, cfg, window=window)
+        with span("mapping.cull_keyframes"):
+            m, n_kf_culled = cull_keyframes(m, cfg, window=window)
 
     # point-pool compaction: recycle culled and fused rows so that n_mps
     # is a live count (Map::EraseMapPoint, Map.cc:69-78). The tracker's
     # last-frame associations ride through the remap. Off while something
     # else holds point ids (a background global BA).
     if allow_compact:
-        m, remap = map_state.compact_points(m)
+        with span("mapping.compact_points"):
+            m, remap = map_state.compact_points(m)
         last_mp = torch.where(
             last_mp >= 0, remap[torch.clamp(last_mp, min=0).to(i64)],
             torch.full_like(last_mp, -1))
 
     if full:
-        m = map_state.refresh_point_stats(m, cfg)
+        with span("mapping.refresh_point_stats"):
+            m = map_state.refresh_point_stats(m, cfg)
     step = dict(n_spawned=n_spawned, n_fused=n_fused, n_culled=_sum_i32(cull),
                 n_kf_culled=n_kf_culled, n_ba_free=n_ba_free,
                 n_ba_cams=_sum_i32(w_ok), ba_iters=ba_stats["iters"],

@@ -53,6 +53,7 @@ from orb_slam_2_ros_tpu_torch.map.state import row, set_row, set_rows
 from orb_slam_2_ros_tpu_torch.pipeline.local_mapping import _kf_as_frame
 from orb_slam_2_ros_tpu_torch.ops.ties import first_argmax, top_k_stable
 from orb_slam_2_ros_tpu_torch.parallel import dist_ba
+from orb_slam_2_ros_tpu_torch.pipeline.metrics import span
 from orb_slam_2_ros_tpu_torch.place import database, vocabulary
 from orb_slam_2_ros_tpu_torch.solvers import ba, pose_graph, sim3_solver
 
@@ -148,16 +149,18 @@ def _detect(m: map_state.MapState, st: LoopState, covis, k: int,
     # keyframe ids, so its 10-keyframe heuristics translate to footage)
     fid_k = m.kf_frame_id[k]
     exclude = neigh | (rows == k) | (m.kf_frame_id > fid_k - min_gap_frames)
-    queried = database.query(st.db, st.db.kf_word[k], st.db.kf_wt[k],
-                             vocab.num_words)
+    with span("loop.query"):
+        queried = database.query(st.db, st.db.kf_word[k], st.db.kf_wt[k],
+                                 vocab.num_words)
     scores = queried[0]
     inf = torch.full_like(scores, float("inf"))
     min_score = torch.min(torch.where(neigh & st.db.kf_valid, scores, inf))
     min_score = torch.where(torch.isfinite(min_score), min_score,
                             torch.full_like(min_score, 0.015))
-    cand = database.detect_candidates(
-        st.db, st.db.kf_word[k], st.db.kf_wt[k], exclude, covis,
-        vocab.num_words, min_score=None, queried=queried)
+    with span("loop.detect_candidates"):
+        cand = database.detect_candidates(
+            st.db, st.db.kf_word[k], st.db.kf_wt[k], exclude, covis,
+            vocab.num_words, min_score=None, queried=queried)
     cand = cand & (scores >= min_score)
     eye = torch.eye(K, dtype=torch.bool, device=dev)
     group = cand[:, None] & ((covis > 0) | eye)             # (K, K)
@@ -184,6 +187,7 @@ def _detect(m: map_state.MapState, st: LoopState, covis, k: int,
     return st, best.to(torch.int32), found
 
 
+@span("loop.ingest_and_detect")
 def _ingest_and_detect(m: map_state.MapState, st: LoopState, cfg: SlamConfig,
                        vocab: vocabulary.Vocabulary, min_gap_frames: int,
                        n_kfs: int, n_ingested: int):
@@ -201,7 +205,8 @@ def _ingest_and_detect(m: map_state.MapState, st: LoopState, cfg: SlamConfig,
     dev = m.kf_q.device
     # one covisibility build serves every sub-step (the observation table
     # does not change during ingestion)
-    covis = map_state.covisibility(m)
+    with span("loop.covisibility"):
+        covis = map_state.covisibility(m)
     cand_out = torch.full((), -1, dtype=torch.int32, device=dev)
     k_out = torch.full((), max(n_kfs - 1, 0), dtype=torch.int32, device=dev)
 
@@ -214,9 +219,11 @@ def _ingest_and_detect(m: map_state.MapState, st: LoopState, cfg: SlamConfig,
         if n_ingested >= n_kfs:
             break
         r = min(n_ingested, m.K - 1)
-        wid, nid, tfidf = vocabulary.transform(
-            vocab, m.kf_desc[r], m.kf_kp_valid[r] & m.kf_valid[r])
-        wt = vocabulary.bow_weights(wid, tfidf, vocab.num_words)
+        with span("loop.transform"):
+            wid, nid, tfidf = vocabulary.transform(
+                vocab, m.kf_desc[r], m.kf_kp_valid[r] & m.kf_valid[r])
+        with span("loop.bow_weights"):
+            wt = vocabulary.bow_weights(wid, tfidf, vocab.num_words)
         n_ingested += 1
         st = st._replace(
             db=database.add(st.db, r, wid, wt),
@@ -232,6 +239,7 @@ def _ingest_and_detect(m: map_state.MapState, st: LoopState, cfg: SlamConfig,
     return st, torch.stack([cand_out, k_out]), n_ingested
 
 
+@span("loop.sim3_ladder")
 def _sim3_check(m: map_state.MapState, st: LoopState, c: int, k: int,
                 cfg: SlamConfig, generator: torch.Generator = None,
                 sample_idx: torch.Tensor = None):
@@ -260,9 +268,10 @@ def _sim3_check(m: map_state.MapState, st: LoopState, c: int, k: int,
     # ---- BoW-gated matching between keyframes k (current) and c
     valid_k = m.kf_kp_valid[k] & (mp_k_all >= 0)
     valid_c = m.kf_kp_valid[c] & (mp_c >= 0)
-    c_to_k, _ = matcher.search_by_node(
-        m.kf_desc[k], st.kf_node[k], valid_k, m.kf_angle[k],
-        m.kf_desc[c], st.kf_node[c], valid_c, m.kf_angle[c], cfg)
+    with span("loop.search_by_node"):
+        c_to_k, _ = matcher.search_by_node(
+            m.kf_desc[k], st.kf_node[k], valid_k, m.kf_angle[k],
+            m.kf_desc[c], st.kf_node[c], valid_c, m.kf_angle[c], cfg)
     # pairs aligned on c's keypoint axis: j matched to i = c_to_k[j]
     i_idx = clip(c_to_k)
     mp_k = mp_k_all[i_idx]
@@ -274,9 +283,10 @@ def _sim3_check(m: map_state.MapState, st: LoopState, c: int, k: int,
     n_pairs = torch.sum(pair_ok, dtype=torch.int32)
 
     fix_scale = cfg.sensor != 0     # the monocular sensor estimates scale
-    q12, t12, s12, inl, n_inl = sim3_solver.ransac_sim3(
-        x1, x2, pair_ok, uv1, uv2, cfg, generator, fix_scale=fix_scale,
-        sample_idx=sample_idx)
+    with span("loop.ransac_sim3"):
+        q12, t12, s12, inl, n_inl = sim3_solver.ransac_sim3(
+            x1, x2, pair_ok, uv1, uv2, cfg, generator, fix_scale=fix_scale,
+            sample_idx=sample_idx)
 
     # ---- SearchBySim3 mutual match growing (ORBmatcher.cc:1104-1328):
     # project c's unmatched landmarks into k through the RANSAC Sim3 and
@@ -290,18 +300,20 @@ def _sim3_check(m: map_state.MapState, st: LoopState, c: int, k: int,
     src_c = (m.kf_kp_valid[c] & (mp_c >= 0) & m.mp_valid[clip(mp_c)]
              & ~pair_ok)
     x_ck = sim3.apply(q12, t12, s12, x2)
-    A, _ = matcher.search_by_projection_pose(
-        x_ck, m.kf_desc[c], m.kf_octave[c], src_c, q0, t0, frame_k, cfg,
-        th=7.5, check_rotation=False, exclude_kp=matched_k)
+    with span("loop.search_by_projection_pose"):
+        A, _ = matcher.search_by_projection_pose(
+            x_ck, m.kf_desc[c], m.kf_octave[c], src_c, q0, t0, frame_k, cfg,
+            th=7.5, check_rotation=False, exclude_kp=matched_k)
     # k -> c: sources are k's landmark-bearing, not-yet-matched kps
     src_k = (m.kf_kp_valid[k] & (mp_k_all >= 0)
              & m.mp_valid[clip(mp_k_all)] & ~matched_k)
     q21, t21, s21 = sim3.inverse(q12, t12, s12)
     x_kc = sim3.apply(q21, t21, s21,
                       se3.apply(qk, tk, m.mp_pos[clip(mp_k_all)]))
-    B, _ = matcher.search_by_projection_pose(
-        x_kc, m.kf_desc[k], m.kf_octave[k], src_k, q0, t0, frame_c, cfg,
-        th=7.5, check_rotation=False, exclude_kp=pair_ok)
+    with span("loop.search_by_projection_pose"):
+        B, _ = matcher.search_by_projection_pose(
+            x_kc, m.kf_desc[k], m.kf_octave[k], src_k, q0, t0, frame_c, cfg,
+            th=7.5, check_rotation=False, exclude_kp=pair_ok)
     # mutual agreement on c's keypoint axis: c-kp i grew k-kp B[i] only
     # if k-kp B[i] picked i back (A[B[i]] == i)
     grown = torch.where((B >= 0) & (A[clip(B)] == slots), B,
@@ -317,14 +329,16 @@ def _sim3_check(m: map_state.MapState, st: LoopState, c: int, k: int,
     # the full match set: the kernel downweights the outliers RANSAC
     # rejected, and matches that reproject under the refined transform are
     # regained); the verdict counts the refined inliers
-    q12, t12, s12, inl, n_inl = sim3_solver.refine_sim3_lm(
-        q12, t12, s12, x1, x2, uv1, uv2, pair_ok, cfg,
-        fix_scale=fix_scale)
+    with span("loop.refine_sim3_lm"):
+        q12, t12, s12, inl, n_inl = sim3_solver.refine_sim3_lm(
+            q12, t12, s12, x1, x2, uv1, uv2, pair_ok, cfg,
+            fix_scale=fix_scale)
 
     # ---- match widening: project the loop keyframe's neighbourhood
     # landmarks through the estimated Sim3 into keyframe k and count total
     # correspondences (SearchByProjection with Scw, LoopClosing.cc:439-476)
-    covis0 = map_state.covisibility(m)
+    with span("loop.covisibility"):
+        covis0 = map_state.covisibility(m)
     # the matched keyframe's covisible set plus its TEMPORAL
     # neighbours: after the windowed BA's edge pruning old segments
     # keep few shared observations
@@ -342,9 +356,10 @@ def _sim3_check(m: map_state.MapState, st: LoopState, c: int, k: int,
     # widening only FILLS EMPTY slots (LoopClosing.cc:439-449), so the
     # >= 40 gate counts Sim3 inliers plus widened additions
     matched_k2 = _mark(P, spare(pair_ok & inl, i_idx))
-    kp_to_mp_w, _ = matcher.search_by_projection_pose(
-        x_in_k, m.mp_desc, lvl_k, group_mp, q0, t0, frame_k, cfg,
-        th=10.0, check_rotation=False, exclude_kp=matched_k2)
+    with span("loop.search_by_projection_pose"):
+        kp_to_mp_w, _ = matcher.search_by_projection_pose(
+            x_in_k, m.mp_desc, lvl_k, group_mp, q0, t0, frame_k, cfg,
+            th=10.0, check_rotation=False, exclude_kp=matched_k2)
     n_widened = torch.sum(kp_to_mp_w >= 0, dtype=torch.int32)
     accepted = ((n_inl >= MIN_SIM3_INLIERS) & (n_pairs >= MIN_BOW_PAIRS)
                 & (n_inl + n_widened >= MIN_TOTAL_MATCHES))
@@ -353,6 +368,7 @@ def _sim3_check(m: map_state.MapState, st: LoopState, c: int, k: int,
     return accepted, n_inl, q12, t12, s12, kp_to_mp_w, counts
 
 
+@span("loop.apply_correction")
 def _apply_correction(m: map_state.MapState, st: LoopState, c: int, k: int,
                       q12, t12, s12, kp_to_mp_w, cfg: SlamConfig):
     """The accepted-loop correction: essential-graph optimisation, point
@@ -370,7 +386,8 @@ def _apply_correction(m: map_state.MapState, st: LoopState, c: int, k: int,
     def spare(ok, idx):
         return torch.where(ok, idx.to(i64), torch.full_like(idx, M, dtype=i64))
 
-    covis = map_state.covisibility(m)
+    with span("loop.covisibility"):
+        covis = map_state.covisibility(m)
     # loop-side landmark group
     group_mp = _group_points(m, (covis[c] > 0) | (rows == c))
 
@@ -419,13 +436,15 @@ def _apply_correction(m: map_state.MapState, st: LoopState, c: int, k: int,
     rs = torch.cat([rs[:base], st.loop_rs, s12[None]])
 
     fixed = (rows == c) | ~exists
-    q2, t2, s2, _ = pose_graph.optimize_essential_graph(
-        qv, tv, sv, ei_all, ej_all, rq, rt, rs, w_all, fixed, cfg)
+    with span("loop.essential_graph"):
+        q2, t2, s2, _ = pose_graph.optimize_essential_graph(
+            qv, tv, sv, ei_all, ej_all, rq, rt, rs, w_all, fixed, cfg)
 
     # correct the points through their reference keyframes
     owner = torch.clamp(m.mp_first_kf, 0, K - 1)
-    new_pos = pose_graph.correct_points(
-        m.mp_pos, owner, q_old, t_old, s_old, q2, t2, s2, m.mp_valid)
+    with span("loop.correct_points"):
+        new_pos = pose_graph.correct_points(
+            m.mp_pos, owner, q_old, t_old, s_old, q2, t2, s2, m.mp_valid)
     q_se, t_se = sim3.to_se3(q2, t2, s2)
     m = m._replace(kf_q=q_se, kf_t=t_se, mp_pos=new_pos)
 
@@ -457,7 +476,8 @@ def _apply_correction(m: map_state.MapState, st: LoopState, c: int, k: int,
     # already references a different landmark, the loop landmark
     # replaces it. The 8 best covisible rows are taken whether or not
     # they share anything; an invalid row contributes nothing.
-    covis2 = map_state.covisibility(m)
+    with span("loop.covisibility"):
+        covis2 = map_state.covisibility(m)
     _, fuse_targets = top_k_stable(covis2[k], N_FUSE_ROWS - 1)
     fuse_rows = torch.cat([this[1:], fuse_targets])
     oct0 = torch.zeros((M,), dtype=torch.int32, device=dev)
@@ -467,10 +487,11 @@ def _apply_correction(m: map_state.MapState, st: LoopState, c: int, k: int,
         # the sweep searches at the base octave window (the reference's
         # documented deviation: predicted-level gating thins the
         # cross-seam fusion set enough for the GBA to relax the seam)
-        kp_to_lmp, _ = matcher.search_by_projection_pose(
-            m.mp_pos, m.mp_desc, oct0, loop_side & row(m.kf_valid, r),
-            row(m.kf_q, r), row(m.kf_t, r), frame_r, cfg, th=4.0,
-            check_rotation=False)
+        with span("loop.search_by_projection_pose"):
+            kp_to_lmp, _ = matcher.search_by_projection_pose(
+                m.mp_pos, m.mp_desc, oct0, loop_side & row(m.kf_valid, r),
+                row(m.kf_q, r), row(m.kf_t, r), frame_r, cfg, th=4.0,
+                check_rotation=False)
         dst = row(m.kf_mp, r)
         gain = (kp_to_lmp >= 0) & (dst < 0)
         m = m._replace(kf_mp=set_row(
@@ -508,6 +529,7 @@ def _apply_correction(m: map_state.MapState, st: LoopState, c: int, k: int,
     return m, st
 
 
+@span("loop.gba_start")
 def _gba_start(m: map_state.MapState, st: LoopState, cfg: SlamConfig,
                mesh=None):
     """Snapshot the map for the chunked global BA
@@ -543,6 +565,7 @@ def _gba_start(m: map_state.MapState, st: LoopState, cfg: SlamConfig,
         loop_w=lw)
 
 
+@span("loop.gba_chunk")
 def _gba_step(g, cfg: SlamConfig, mesh=None):
     if mesh is not None:
         return dist_ba.distributed_gba_chunk(mesh, g, cfg,
@@ -552,6 +575,7 @@ def _gba_step(g, cfg: SlamConfig, mesh=None):
         structure_only=cfg.solver.gba_structure_only)
 
 
+@span("loop.gba_finish")
 def _gba_finish(m: map_state.MapState, g, mesh=None, cfg: SlamConfig = None):
     """Reconcile the GBA snapshot with the live map: keyframes and points
     that were IN the GBA take the optimised values; anything created (or

@@ -39,6 +39,7 @@ from orb_slam_2_ros_tpu_torch.frontend.frame import Frame
 from orb_slam_2_ros_tpu_torch.geometry import camera, se3
 from orb_slam_2_ros_tpu_torch.map import state as map_state
 from orb_slam_2_ros_tpu_torch.map.state import pad_row
+from orb_slam_2_ros_tpu_torch.pipeline.metrics import span
 from orb_slam_2_ros_tpu_torch.solvers import ba, initializer
 
 
@@ -53,17 +54,21 @@ def _try_init(cfg: SlamConfig, ref: Frame, cur: Frame,
               sample_idx: torch.Tensor = None):
     """Match the current frame to the reference frame and run the
     initializer. Returns (ok, InitResult, cur_to_ref, n_matches)."""
-    cur_to_ref, _ = matcher.search_for_initialization(ref, cur, cfg)
+    with span("mono.search_for_initialization"):
+        cur_to_ref, _ = matcher.search_for_initialization(ref, cur, cfg)
     pair = cur_to_ref >= 0
     n_matches = torch.sum(pair, dtype=torch.int32)
     ridx = torch.clamp(cur_to_ref, min=0).to(torch.int64)
     K = camera.intrinsics(cfg.camera, cur.uv.device)
-    res = initializer.initialize(ref.uv[ridx], cur.uv, pair, K,
-                                 generator=generator, sample_idx=sample_idx)
+    with span("mono.initialize"):
+        res = initializer.initialize(ref.uv[ridx], cur.uv, pair, K,
+                                     generator=generator,
+                                     sample_idx=sample_idx)
     ok = res.ok & (n_matches >= cfg.tracking.min_init_mono_matches)
     return ok, res, cur_to_ref, n_matches
 
 
+@span("mono.build_map")
 def _build_map(cfg: SlamConfig, ref: Frame, cur: Frame, cur_to_ref, q, t,
                points, good, ref_frame_id, cur_frame_id):
     """Initial map: keyframe 0 at the identity, keyframe 1 at (q, t); the
@@ -132,9 +137,10 @@ def _build_map(cfg: SlamConfig, ref: Frame, cur: Frame, cur_to_ref, q, t,
     kp_valid = m.kf_kp_valid[:2] & m.kf_valid[:2, None]
     prob = ba.build_problem(m.kf_uv[:2], m.kf_ur[:2], m.kf_octave[:2],
                             m.kf_mp[:2], kp_valid, cfg)
-    _, _, pos, _ = ba.bundle_adjustment(m.kf_q[:2], m.kf_t[:2], None,
-                                        m.mp_pos, m.mp_valid, prob, cfg,
-                                        phases=(20,))
+    with span("mono.structure_only_ba"):
+        _, _, pos, _ = ba.bundle_adjustment(m.kf_q[:2], m.kf_t[:2], None,
+                                            m.mp_pos, m.mp_valid, prob, cfg,
+                                            phases=(20,))
     m = m._replace(mp_pos=pos)
 
     # median-depth scale normalization (Tracking.cc:775-800): a no-op in
@@ -148,7 +154,8 @@ def _build_map(cfg: SlamConfig, ref: Frame, cur: Frame, cur_to_ref, q, t,
         kf_t=m.kf_t * inv_med,
         mp_min_dist=m.mp_min_dist * inv_med,
         mp_max_dist=m.mp_max_dist * inv_med)
-    m = map_state.refresh_point_stats(m, cfg)
+    with span("mono.refresh_point_stats"):
+        m = map_state.refresh_point_stats(m, cfg)
     return m, m.kf_q[1], m.kf_t[1], m.kf_mp[1]
 
 
@@ -181,12 +188,14 @@ class MonoInitializer:
         self.ref = None
         self.ref_frame_id = -1
 
+    @span("mono.init_attempt")
     def process(self, gray, frame_id: int):
         """Feed one float gray image (host array or tensor). Returns None
         while initializing, else (map, q1, t1, kp_mp, cur_frame) ready for
         the tracker."""
         gray = torch.as_tensor(gray, dtype=torch.float32).to(self.device)
-        frame = frame_mod.build_mono(gray, self.cfg)
+        with span("mono.build_frame"):
+            frame = frame_mod.build_mono(gray, self.cfg)
         n_kps = int(torch.sum(frame.valid))
         if self.ref is None or n_kps <= 100:
             # (re)set the reference (Tracking.cc:638-660)

@@ -26,6 +26,7 @@ from orb_slam_2_ros_tpu_torch.frontend import matcher
 from orb_slam_2_ros_tpu_torch.frontend.frame import Frame
 from orb_slam_2_ros_tpu_torch.map import state as map_state
 from orb_slam_2_ros_tpu_torch.ops.ties import first_argmax, top_k_stable
+from orb_slam_2_ros_tpu_torch.pipeline.metrics import span
 from orb_slam_2_ros_tpu_torch.place import database, vocabulary
 from orb_slam_2_ros_tpu_torch.solvers import pnp
 from orb_slam_2_ros_tpu_torch.solvers.pose_opt import pose_optimization
@@ -42,24 +43,30 @@ def _pick(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     return x.index_select(0, i)[0]
 
 
+@span("reloc.bow_candidates")
 def _candidates(m: map_state.MapState, db: database.BowDatabase,
                 frame: Frame, vocab: vocabulary.Vocabulary):
     """The frame's BoW and the top ``N_CANDIDATES`` database candidates.
     Returns (top_idx (C,) int64, cand_ok (C,) bool, node_id (P,))."""
-    wid, nid, tfidf = vocabulary.transform(vocab, frame.kps.desc, frame.valid)
+    with span("reloc.transform"):
+        wid, nid, tfidf = vocabulary.transform(vocab, frame.kps.desc,
+                                               frame.valid)
     wt = vocabulary.bow_weights(wid, tfidf, vocab.num_words)
-    queried = database.query(db, wid, wt, vocab.num_words)
-    cand = database.detect_candidates(
-        db, wid, wt, torch.zeros((m.K,), dtype=torch.bool,
-                                 device=frame.uv.device),
-        map_state.covisibility(m), vocab.num_words, min_score=None,
-        queried=queried)
+    with span("reloc.query"):
+        queried = database.query(db, wid, wt, vocab.num_words)
+    with span("reloc.detect_candidates"):
+        cand = database.detect_candidates(
+            db, wid, wt, torch.zeros((m.K,), dtype=torch.bool,
+                                     device=frame.uv.device),
+            map_state.covisibility(m), vocab.num_words, min_score=None,
+            queried=queried)
     scores = queried[0]
     top_scores, top_idx = top_k_stable(
         torch.where(cand, scores, torch.full_like(scores, -1.0)), N_CANDIDATES)
     return top_idx, top_scores > 0.0, nid
 
 
+@span("reloc.candidate_ladder")
 def _candidate_ladder(m: map_state.MapState, kf_node: torch.Tensor,
                       frame: Frame, node_id: torch.Tensor,
                       top_idx: torch.Tensor, cand_ok: torch.Tensor,
@@ -78,44 +85,55 @@ def _candidate_ladder(m: map_state.MapState, kf_node: torch.Tensor,
             desc_c, node_c, ok_c, angle_c, frame.kps.desc, node_id,
             frame.valid, frame.kps.angle, cfg)[0]
 
-    f_to_c = torch.func.vmap(by_node)(m.kf_desc[top_idx], kf_node[top_idx],
-                                      valid_c, m.kf_angle[top_idx])
+    with span("reloc.search_by_node"):
+        f_to_c = torch.func.vmap(by_node)(m.kf_desc[top_idx],
+                                          kf_node[top_idx], valid_c,
+                                          m.kf_angle[top_idx])
     kp_mp = torch.where(
         f_to_c >= 0, torch.gather(kf_mp, 1, torch.clamp(f_to_c, min=0).to(i64)),
         torch.full_like(f_to_c, -1))
     ok_pair = kp_mp >= 0
     n_bow = torch.sum(ok_pair, dim=1, dtype=torch.int32)
     xw = m.mp_pos[torch.clamp(kp_mp, min=0).to(i64)]          # (C, P, 3)
-    q0, t0, pnp_inl, _ = pnp.ransac_pnp(
-        xw, frame.uv.expand(xw.shape[:-1] + (2,)), ok_pair, cfg,
-        generator=generator, sample_idx=sample_idx)
+    with span("reloc.ransac_pnp"):
+        q0, t0, pnp_inl, _ = pnp.ransac_pnp(
+            xw, frame.uv.expand(xw.shape[:-1] + (2,)), ok_pair, cfg,
+            generator=generator, sample_idx=sample_idx)
 
     def lm(q, t, pts, valid):
         return pose_optimization(q, t, pts, frame.uv, frame.u_right,
                                  frame.kps.octave, valid, cfg)
 
-    q1, t1, inl1, n1 = torch.func.vmap(lm)(q0, t0, xw, ok_pair & pnp_inl)
+    with span("reloc.pose_optimization"):
+        q1, t1, inl1, n1 = torch.func.vmap(lm)(q0, t0, xw,
+                                               ok_pair & pnp_inl)
     kp_mp1 = torch.where(inl1 & ok_pair, kp_mp, torch.full_like(kp_mp, -1))
     usable = cand_ok & (n_bow >= MIN_BOW_MATCHES)
     return q1, t1, kp_mp1, torch.where(usable, n1, torch.full_like(n1, -1))
 
 
+@span("reloc.widening")
 def _widen(m: map_state.MapState, frame: Frame, q, t, kp_mp,
            cfg: SlamConfig):
     """Projection-guided widening over the whole point pool
     (``SearchByProjection``, ``Tracking.cc:1655``) and the final pose LM.
     Returns (q, t, kp_to_mp, n_inliers)."""
-    tv = matcher.frustum_check(q, t, m.mp_pos, m.mp_normal, m.mp_min_dist,
-                               m.mp_max_dist, m.mp_valid, cfg)
-    kp_to_mp2, _ = matcher.search_local_map(tv, m.mp_desc, frame,
-                                            kp_mp >= 0, cfg)
+    with span("reloc.frustum_check"):
+        tv = matcher.frustum_check(q, t, m.mp_pos, m.mp_normal,
+                                   m.mp_min_dist, m.mp_max_dist, m.mp_valid,
+                                   cfg)
+    with span("reloc.search_local_map"):
+        kp_to_mp2, _ = matcher.search_local_map(tv, m.mp_desc, frame,
+                                                kp_mp >= 0, cfg)
     kp_mp_w = torch.where(kp_mp >= 0, kp_mp, kp_to_mp2)
-    q2, t2, inl2, n2 = pose_optimization(
-        q, t, m.mp_pos[torch.clamp(kp_mp_w, min=0).to(torch.int64)],
-        frame.uv, frame.u_right, frame.kps.octave, kp_mp_w >= 0, cfg)
+    with span("reloc.pose_optimization"):
+        q2, t2, inl2, n2 = pose_optimization(
+            q, t, m.mp_pos[torch.clamp(kp_mp_w, min=0).to(torch.int64)],
+            frame.uv, frame.u_right, frame.kps.octave, kp_mp_w >= 0, cfg)
     return q2, t2, torch.where(inl2, kp_mp_w, torch.full_like(kp_mp_w, -1)), n2
 
 
+@span("reloc.attempt")
 def relocalize(m: map_state.MapState, db: database.BowDatabase,
                kf_node: torch.Tensor, frame: Frame, cfg: SlamConfig,
                vocab: vocabulary.Vocabulary,

@@ -78,7 +78,8 @@ from orb_slam_2_ros_tpu_torch.pipeline import frame_drawer, map_merge
 from orb_slam_2_ros_tpu_torch.pipeline.local_mapping import LocalMapper
 from orb_slam_2_ros_tpu_torch.pipeline.loop_closing import (LoopCloser,
                                                             LoopState)
-from orb_slam_2_ros_tpu_torch.pipeline.metrics import StageTimers
+from orb_slam_2_ros_tpu_torch.pipeline.metrics import (StageTimers,
+                                                       entry_point, span)
 from orb_slam_2_ros_tpu_torch.pipeline.mono_init import MonoInitializer
 from orb_slam_2_ros_tpu_torch.pipeline.relocalization import Relocalizer
 from orb_slam_2_ros_tpu_torch.place import database, vocabulary
@@ -211,10 +212,12 @@ class System:
 
     # ------------------------------------------------------------- tracking
 
+    @entry_point
     def track_rgbd(self, gray: np.ndarray, depth: np.ndarray,
                    timestamp: float) -> FrameRecord:
         return self.track_chunk(gray[None], depth[None], [timestamp])[0]
 
+    @entry_point
     def track_chunk(self, grays, depths=None,
                     timestamps=None) -> List[FrameRecord]:
         """Track a batch of frames, grays/depths (N, H, W) float images:
@@ -272,14 +275,14 @@ class System:
             w1 = min(w0 + C, len(grays))
             d = None if depths is None else depths[w0:w1]
             carry_before = self.tracker.carry
-            with self.timers.time("tracking"):
+            with span("tracking"):
                 chunk = self.tracker.process_chunk(grays[w0:w1], d,
                                                    timestamps[w0:w1], wire)
             n_kfs = chunk[-1].ref_kf + 1
             # point ids stay frozen while a global BA holds a snapshot
             gba_running = lc is not None and lc.gba_running
             if mapping_on:
-                with self.timers.time("local_mapping"):
+                with span("local_mapping"):
                     carry = self.tracker.carry
                     m2, n_culled, last_mp2 = self.mapper.run(
                         carry.m, carry.last_mp,
@@ -289,7 +292,7 @@ class System:
                                                         last_mp=last_mp2)
                     self._culled_dev.append(n_culled)
             if loop_on:
-                with self.timers.time("loop_closing"):
+                with span("loop_closing"):
                     # detection only: its verdict is consumed one chunk on
                     lc.dispatch(self.tracker.carry.m, n_kfs)
                     # background GBA: one chunk per tracking chunk, so the
@@ -310,7 +313,7 @@ class System:
             states = self.tracker.last_chunk_states()
             if self.relocalizer is not None and (states == LOST).any():
                 ok = False
-                with self.timers.time("relocalization"):
+                with span("relocalization"):
                     for f in np.flatnonzero(states == LOST):
                         ok, q, t, kp_mp, frame = self._attempt_reloc(
                             *self._to_float_frame(
@@ -342,7 +345,7 @@ class System:
         # to relocalize on the map again (LOST frames were handled above)
         if (recs and self.localization_only and self.relocalizer is not None
                 and recs[-1].state == OK and recs[-1].n_map_inliers < 10):
-            with self.timers.time("relocalization"):
+            with span("relocalization"):
                 self.relocalize()
         return init_recs + recs
 
@@ -389,6 +392,7 @@ class System:
             aux = aux.astype(np.float32) * np.float32(1e-3)
         return dev(gray), dev(aux)
 
+    @entry_point
     def _attempt_reloc(self, gray: torch.Tensor, aux: torch.Tensor):
         """Run the relocalization ladder on one float frame against the
         current map and BoW index (``Tracking::Relocalization``,
@@ -399,14 +403,15 @@ class System:
         m = self.tracker.carry.m
         lc = self.loop_closer
         lc.ingest_pending(m, self.tracker.n_kfs)
-        if self.cfg.sensor == SENSOR_MONOCULAR:
-            frame = frame_mod.build_mono(gray, self.cfg)
-        elif self.cfg.sensor == SENSOR_STEREO:
-            # a deliberate divergence: the reference builds an RGB-D frame
-            # with the right image as depth (its slam.py:512-518)
-            frame = frame_mod.build_stereo(gray, aux, self.cfg)
-        else:
-            frame = frame_mod.build_rgbd(gray, aux, self.cfg)
+        with span("reloc.build_frame"):
+            if self.cfg.sensor == SENSOR_MONOCULAR:
+                frame = frame_mod.build_mono(gray, self.cfg)
+            elif self.cfg.sensor == SENSOR_STEREO:
+                # a deliberate divergence: the reference builds an RGB-D
+                # frame with the right image as depth (its slam.py:512-518)
+                frame = frame_mod.build_stereo(gray, aux, self.cfg)
+            else:
+                frame = frame_mod.build_rgbd(gray, aux, self.cfg)
         ok, q, t, kp_mp, _, _ = self.relocalizer.relocalize(
             m, lc.state.db, lc.state.kf_node, frame,
             generator=self._reloc_generator)
@@ -415,6 +420,7 @@ class System:
         self.n_relocalized += ok
         return ok, q, t, kp_mp, frame
 
+    @entry_point
     def relocalize(self) -> bool:
         """Attempt relocalization with the most recent frame
         (``Tracking::Relocalization``). Returns success."""
@@ -506,6 +512,7 @@ class System:
         self.n_kf_compactions += 1
         return n_freed
 
+    @entry_point
     def reset(self):
         """Full map + tracker reset (``Tracking::Reset``,
         ``Tracking.cc:1727-1765``)."""
@@ -521,6 +528,7 @@ class System:
             self._mono_initialized = False
         self.n_resets += 1
 
+    @entry_point
     def flush(self) -> List[FrameRecord]:
         """Drain the deferred work (queued loop-detection verdicts, an
         in-flight global BA) and fetch all pending frame records. Call at
@@ -529,7 +537,7 @@ class System:
         lc = self.loop_closer
         if (lc is not None and self.loop_closing_enabled
                 and not self.localization_only):
-            with self.timers.time("loop_closing"):
+            with span("loop_closing"):
                 m2, closed = lc.finish_pending(self.tracker.carry.m)
                 if closed:
                     self.tracker.adopt_map(m2)

@@ -40,6 +40,8 @@ from orb_slam_2_ros_tpu_torch.frontend import frame as frame_mod
 from orb_slam_2_ros_tpu_torch.frontend import matcher
 from orb_slam_2_ros_tpu_torch.geometry import camera, se3
 from orb_slam_2_ros_tpu_torch.map import state as map_state
+from orb_slam_2_ros_tpu_torch.pipeline.metrics import count, span
+from orb_slam_2_ros_tpu_torch.solvers import pose_opt
 from orb_slam_2_ros_tpu_torch.solvers.pose_opt import pose_optimization
 
 NO_IMAGES_YET = 0
@@ -129,10 +131,12 @@ def _track_core(cfg: SlamConfig, m: map_state.MapState, frame, q_pred,
     th_close = cfg.camera.bf / cfg.camera.fx * cfg.camera.th_depth
     last_c = torch.clamp(last_mp, min=0).to(i64)
     src_ok = (last_mp >= 0) & m.mp_valid[last_c]
-    kp_to_src, _ = matcher.search_by_projection_pose(
-        m.mp_pos[last_c], m.mp_desc[last_c], last_oct, src_ok, q_pred,
-        t_pred, frame, cfg, th=15.0, src_angle=last_angle,
-        widen_below=tc.min_matches_motion)
+    with span("tracking.search"), \
+            span("tracking.search_by_projection_pose"):
+        kp_to_src, _ = matcher.search_by_projection_pose(
+            m.mp_pos[last_c], m.mp_desc[last_c], last_oct, src_ok, q_pred,
+            t_pred, frame, cfg, th=15.0, src_angle=last_angle,
+            widen_below=tc.min_matches_motion)
     neg = torch.full_like(kp_to_src, -1)
     kp_mp1 = torch.where(kp_to_src >= 0,
                          last_mp[torch.clamp(kp_to_src, min=0).to(i64)], neg)
@@ -143,8 +147,9 @@ def _track_core(cfg: SlamConfig, m: map_state.MapState, frame, q_pred,
     ref_mp = m.kf_mp[r]
     ref_ok = (m.kf_kp_valid[r] & (ref_mp >= 0)
               & m.mp_valid[torch.clamp(ref_mp, min=0).to(i64)] & (m.n_kfs > 0))
-    kp_to_ref, _ = matcher.search_reference_kf(
-        m.kf_desc[r], ref_ok, m.kf_angle[r], frame, cfg)
+    with span("tracking.search"), span("tracking.search_reference_kf"):
+        kp_to_ref, _ = matcher.search_reference_kf(
+            m.kf_desc[r], ref_ok, m.kf_angle[r], frame, cfg)
     kp_mp_ref = torch.where(kp_to_ref >= 0,
                             ref_mp[torch.clamp(kp_to_ref, min=0).to(i64)], neg)
     n_mot = torch.sum(kp_mp1 >= 0, dtype=torch.int32)
@@ -170,19 +175,25 @@ def _track_core(cfg: SlamConfig, m: map_state.MapState, frame, q_pred,
         # localization-VO: the previous frame's temporal points, indexed by
         # its keypoint slots like last_angle (Tracking.cc:893-968)
         vo_pos, vo_desc, vo_oct, vo_ok = vo
-        kp_to_vo, _ = matcher.search_by_projection_pose(
-            vo_pos, vo_desc, vo_oct, vo_ok, q_pred, t_pred, frame, cfg,
-            th=15.0, src_angle=last_angle, widen_below=tc.min_matches_motion)
+        with span("tracking.search"), \
+                span("tracking.search_by_projection_pose"):
+            kp_to_vo, _ = matcher.search_by_projection_pose(
+                vo_pos, vo_desc, vo_oct, vo_ok, q_pred, t_pred, frame, cfg,
+                th=15.0, src_angle=last_angle,
+                widen_below=tc.min_matches_motion)
         kp_vo = torch.where(kp_mp1 >= 0, neg, kp_to_vo)
     pos1, valid1 = edges(kp_mp1, kp_vo)
-    q1, t1, inl1, n1 = pose_optimization(
-        q_start, t_start, pos1, frame.uv, frame.u_right, frame.kps.octave,
-        valid1, cfg)
+    with span("tracking.pose_solve"):
+        q1, t1, inl1, n1 = pose_optimization(
+            q_start, t_start, pos1, frame.uv, frame.u_right,
+            frame.kps.octave, valid1, cfg)
     kp_mp1 = torch.where(inl1, kp_mp1, neg)
     kp_vo = torch.where(inl1, kp_vo, neg)
 
-    tv = matcher.frustum_check(q1, t1, m.mp_pos, m.mp_normal, m.mp_min_dist,
-                               m.mp_max_dist, m.mp_valid, cfg)
+    with span("tracking.search"), span("tracking.frustum_check"):
+        tv = matcher.frustum_check(q1, t1, m.mp_pos, m.mp_normal,
+                                   m.mp_min_dist, m.mp_max_dist, m.mp_valid,
+                                   cfg)
     # points already matched by the motion-model stage count as visible too
     M = m.M
     seen_idx = torch.where(kp_mp1 >= 0, kp_mp1.to(i64),
@@ -209,16 +220,19 @@ def _track_core(cfg: SlamConfig, m: map_state.MapState, frame, q_pred,
     # a relocalization (SearchLocalPoints, Tracking.cc:1322-1330)
     th_base = 3.0 if cfg.sensor == SENSOR_RGBD else 1.0
     th_lm = torch.where(since_reloc < 2, 5.0, th_base)
-    kp_to_c, _ = matcher.search_local_map(tv_c, m.mp_desc[cand_l], frame,
-                                          kp_mp1 >= 0, cfg, th=th_lm)
+    with span("tracking.search"), span("tracking.search_local_map"):
+        kp_to_c, _ = matcher.search_local_map(tv_c, m.mp_desc[cand_l], frame,
+                                              kp_mp1 >= 0, cfg, th=th_lm)
     kp_to_mp2 = torch.where(kp_to_c >= 0,
                             cand[torch.clamp(kp_to_c, min=0).to(i64)], neg)
     kp_mp = torch.where(kp_mp1 >= 0, kp_mp1, kp_to_mp2)
     # a local-map match supersedes a temporal VO match
     kp_vo = torch.where(kp_mp >= 0, neg, kp_vo)
     pos2, valid2 = edges(kp_mp, kp_vo)
-    q2, t2, inl2, n2 = pose_optimization(
-        q1, t1, pos2, frame.uv, frame.u_right, frame.kps.octave, valid2, cfg)
+    with span("tracking.pose_solve"):
+        q2, t2, inl2, n2 = pose_optimization(
+            q1, t1, pos2, frame.uv, frame.u_right, frame.kps.octave, valid2,
+            cfg)
     n_map = torch.sum(inl2 & (kp_mp >= 0), dtype=torch.int32)
     kp_mp = torch.where(inl2, kp_mp, neg)
     close = frame.valid & (frame.depth > 0) & (frame.depth < th_close)
@@ -228,9 +242,12 @@ def _track_core(cfg: SlamConfig, m: map_state.MapState, frame, q_pred,
             kp_vo >= 0)
 
 
+@span("tracking.frame_step")
 def _frame_step(cfg: SlamConfig, carry: TrackCarry, frame, q_init, t_init):
     """One frame: track, bump visibility, initialize or decide and commit a
-    keyframe (all predicated), update the carry. Returns (carry, out (20,))."""
+    keyframe (all predicated), update the carry. Returns (carry, out (21,)):
+    the record's 20 numbers, then the pose LM's idle iterations (launched
+    after their round had converged), which ``flush`` counts."""
     tc = cfg.tracking
     m = carry.m
     f32 = torch.float32
@@ -238,12 +255,16 @@ def _frame_step(cfg: SlamConfig, carry: TrackCarry, frame, q_init, t_init):
     vo = ((carry.vo_pos, carry.vo_desc, carry.vo_oct, carry.vo_ok)
           if cfg.localization_only else None)
     q_pred, t_pred = se3.compose(carry.vel_q, carry.vel_t, carry.q, carry.t)
-    (q2, t2, kp_mp, n1, n2, n_map, nct, ncf, vis_mask,
-     kp_is_vo) = _track_core(
-        cfg, m, frame, q_pred, t_pred, carry.q, carry.t, carry.last_mp,
-        carry.last_oct, carry.last_angle, carry.since_reloc, vo)
+    with pose_opt.done_flags() as flags:
+        (q2, t2, kp_mp, n1, n2, n_map, nct, ncf, vis_mask,
+         kp_is_vo) = _track_core(
+            cfg, m, frame, q_pred, t_pred, carry.q, carry.t, carry.last_mp,
+            carry.last_oct, carry.last_angle, carry.since_reloc, vo)
+    count("tracking.pose_lm_iters", sum(f.numel() for f in flags))
+    idle = torch.cat(flags).sum(dtype=f32)[None]
     good = (n2 >= tc.min_inliers_local_map) & carry.initialized
-    m = map_state.bump_visibility(m, vis_mask, kp_mp, carry.initialized)
+    with span("tracking.map_update"), span("tracking.bump_visibility"):
+        m = map_state.bump_visibility(m, vis_mask, kp_mp, carry.initialized)
 
     # stereo/RGB-D initialization (predicated); mono initializes at the
     # System level (two-view reconstruction), and a frozen map never does
@@ -267,8 +288,10 @@ def _frame_step(cfg: SlamConfig, carry: TrackCarry, frame, q_init, t_init):
     q_c = torch.where(can_init, q_init, q2)
     t_c = torch.where(can_init, t_init, t2)
     kp_mp_c = torch.where(can_init, torch.full_like(kp_mp, -1), kp_mp)
-    m, kf_row = map_state.commit_keyframe(
-        m, frame, q_c, t_c, carry.frame_id, kp_mp_c, commit, can_init, cfg)
+    with span("tracking.map_update"), span("tracking.commit_keyframe"):
+        m, kf_row = map_state.commit_keyframe(
+            m, frame, q_c, t_c, carry.frame_id, kp_mp_c, commit, can_init,
+            cfg)
     kp_mp_out = torch.where(commit, kf_row, kp_mp)
     n_spawned = torch.sum(kf_row >= 0, dtype=torch.int32)
 
@@ -325,7 +348,7 @@ def _frame_step(cfg: SlamConfig, carry: TrackCarry, frame, q_init, t_init):
     out = torch.cat([
         torch.stack([n1_out.to(f32), n2_out.to(f32), commit.to(f32),
                      state_code.to(f32)]),
-        qi, ti, r_ref.to(f32)[None], q_cr, t_cr, n_map.to(f32)[None]])
+        qi, ti, r_ref.to(f32)[None], q_cr, t_cr, n_map.to(f32)[None], idle])
     return new_carry, out
 
 
@@ -334,6 +357,7 @@ def _unit_quat(like):
     return torch.cat([torch.ones_like(like[:1]), torch.zeros_like(like[1:])])
 
 
+@span("frontend")
 def build_frame(cfg: SlamConfig, gray_u8: torch.Tensor, aux_w: torch.Tensor):
     """Frame from wire-format inputs: u8 gray and, per sensor, the u8 right
     image (stereo, ``Frame.cc:62-118``) or integer millimetre depth
@@ -373,7 +397,7 @@ class Tracker:
         self.device = torch.device(device)
         self.state = NO_IMAGES_YET
         self.records: List[FrameRecord] = []
-        self._pending = []          # [(timestamps, (k, 20) device outs)]
+        self._pending = []          # [(timestamps, (k, 21) device outs)]
         self._last_chunk = 0        # index in records of the last chunk
         self._q_init = se3.quat_exp(torch.tensor(
             [cfg.initial_pitch, 0.0, 0.0], dtype=torch.float32,
@@ -465,7 +489,10 @@ class Tracker:
         """Materialize all pending per-frame records (one device fetch)."""
         if not self._pending:
             return []
-        fetched = torch.cat([p[1] for p in self._pending]).cpu().numpy()
+        outs = torch.cat([p[1] for p in self._pending])
+        with span("tracking.fetch"):
+            fetched = outs.cpu().numpy()
+        count("tracking.pose_lm_idle_iters", int(fetched[:, 20].sum()))
         ts_all = [t for p in self._pending for t in p[0]]
         recs = []
         for ts, row in zip(ts_all, fetched):

@@ -22,11 +22,12 @@ after it. Every number printed comes from this one process:
   unprofiled window's and the unprofiled chunks' after the first;
 - kernel launches per frame (runtime launch calls in the profiled window);
 - per stage: host ms/frame (the stage's range on the host clock), device
-  ms/frame and launches/frame. Stages are ``record_function`` ranges put
-  around the tracking step's calls for the profiled window only; they do
-  not synchronise. A stage's parts are indented under it (the extractor's
-  under ``build_frame``, the tracking step's under ``frame_step``), and a
-  launch counts for the innermost stage only;
+  ms/frame and launches/frame. Stages are the program's own spans
+  (``pipeline/metrics.py``), which open a ``record_function`` range
+  ``slam.<name>`` while the profiler records and never synchronise. A
+  stage's parts are indented under it (the extractor's under ``frontend``,
+  the tracking step's under ``tracking.frame_step``), and a launch counts
+  for the innermost stage only;
 - the matcher kernel's device time per launch, by its name in the
   profiler's ``key_averages()``: the kernel's time in the path, on the
   arguments and between the neighbours the tracking step gives it.
@@ -38,9 +39,8 @@ The top kernels by device time and the stage table also go to
 ``chip_smoke.py``'s 224-frame synthetic loop in chunks of 16. Every call of
 the mapper is timed with the host clock between two synchronisations, so a
 chunk's wall time splits into tracking and mapping. The executed steps
-named in ``PROFILED_STEPS`` run under ``torch.profiler`` with a
-``record_function`` range around each part of the step; the others run
-unprofiled. It prints, from this one process: per chunk the wall seconds
+named in ``PROFILED_STEPS`` run under ``torch.profiler``, where the
+step's spans name its parts; the others run unprofiled. It prints, from this one process: per chunk the wall seconds
 of tracking and of mapping; per executed step its wall ms and what it did
 (free cameras and points, BA iterations, points spawned, fused, culled);
 over the profiled steps, per step: device busy ms, kernel launches, the
@@ -57,8 +57,8 @@ correction; ``step_background`` with a global BA in flight: one chunk of 5
 iterations, the last also the reconciliation) is timed with the host clock
 between two synchronisations. The dispatches named in
 ``PROFILED_DISPATCHES``, every ladder and correction, and the first GBA
-chunk run under ``torch.profiler`` with a ``record_function`` range around
-each program and its parts (ingest/detect: transform, query, candidate
+chunk run under ``torch.profiler``, where the spans name each program and
+its parts (ingest/detect: transform, query, candidate
 selection; the ladder: BoW pairing, RANSAC, the projection searches, the LM
 refinement; the correction: the essential graph, the point correction, the
 fuse sweep's searches; a GBA chunk). It prints per kind of call the wall ms
@@ -73,12 +73,12 @@ the first 32 frames of the orbit, then calls ``System._attempt_reloc`` on
 two frames against that map: frame 10, a view of the map (a successful
 attempt), and a blind frame (zeros: no keypoints, a failed attempt). Each
 is timed unprofiled ``RELOC_REPEATS`` times with the host clock between two
-synchronisations, then once under ``torch.profiler`` with a
-``record_function`` range around the attempt and its parts: the frame, the
+synchronisations, then once under ``torch.profiler``, where the spans name
+the attempt and its parts: the frame, the
 BoW candidates (transform, query, candidate selection), the candidate
 ladder (BoW matching, EPnP RANSAC, the pose LM over the 5 candidates) and
 the widening (frustum check, the matcher kernel over the whole point pool,
-the final LM; the ``pose_optimization`` row holds both LMs). It prints per
+the final LM; the ``reloc.pose_optimization`` row holds both LMs). It prints per
 attempt the wall ms, device busy ms, launches, the idle share and the stage
 table, and the matcher kernel's launches and mean device time; the tables
 also go to ``chiprun_out/profile_reloc.txt``; the last line is a JSON
@@ -88,14 +88,14 @@ summary.
 orbit's frames one at a time until the two-view initializer succeeds; each
 call of the initializer is timed with the host clock between two
 synchronisations. A second system, seeded the same, repeats the calls and
-runs the successful one under ``torch.profiler`` with a range around the
+runs the successful one under ``torch.profiler``, its spans naming the
 initializer's parts (the frame, ``search_for_initialization``,
 ``initialize``, ``_build_map`` and its structure-only BA). Then a
 localization-only system on a map of the view straight ahead (the
 scenario of ``tests/test_localization_vo.py`` at the full operating point)
 tracks 25 frames that yaw the map out of view, unprofiled, and the next
-frame twice: once timed, once under the profiler with the tracking stages'
-ranges. It prints per case the wall ms, device busy ms, launches, idle
+frame twice: once timed, once under the profiler with the tracking
+stages' spans. It prints per case the wall ms, device busy ms, launches, idle
 share and stage table, and the matcher kernel's launches and mean device
 time; the tables also go to ``chiprun_out/profile_mono_vo.txt``; the last
 line is a JSON summary.
@@ -103,8 +103,6 @@ line is a JSON summary.
 
 from __future__ import annotations
 
-import contextlib
-import functools
 import json
 import os
 import subprocess
@@ -115,18 +113,11 @@ import torch
 
 from orb_slam_2_ros_tpu_torch.config import (SENSOR_MONOCULAR, SENSOR_RGBD,
                                              SlamConfig)
-from orb_slam_2_ros_tpu_torch.frontend import extractor, matcher
-from orb_slam_2_ros_tpu_torch.frontend import frame as frame_mod
-from orb_slam_2_ros_tpu_torch.geometry import triangulate
 from orb_slam_2_ros_tpu_torch.io import SyntheticRGBD
-from orb_slam_2_ros_tpu_torch.map import state as map_state
-from orb_slam_2_ros_tpu_torch.ops import fast
-from orb_slam_2_ros_tpu_torch.pipeline import (local_mapping, loop_closing,
-                                               relocalization, tracking)
+from orb_slam_2_ros_tpu_torch.pipeline import relocalization, tracking
+from orb_slam_2_ros_tpu_torch.pipeline.metrics import PREFIX
 from orb_slam_2_ros_tpu_torch.pipeline.slam import System
-from orb_slam_2_ros_tpu_torch.place import database, vocabulary
-from orb_slam_2_ros_tpu_torch.solvers import (ba, pnp, pose_graph,
-                                              sim3_solver)
+from orb_slam_2_ros_tpu_torch.place import vocabulary
 
 FRAMES = 72
 WINDOW = 4      # frames in the profiled and in the unprofiled window
@@ -147,103 +138,98 @@ MATCHER_KERNEL = "masked_best_two_kernel"    # its name in the profile
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx")
 
-# (module, attribute, stage name, depth); the attribute is looked up
-# through the module at call time, so replacing it wraps every call
+# (span name, depth) of the program's spans (``pipeline/metrics.py``), in
+# the order of the printed table; the profiler sees each as the range
+# "slam." + name. A depth-d row's parts are the depth-(d + 1) rows after it
 STAGES = (
-    (tracking, "build_frame", "build_frame", 0),
-    (extractor, "resize_linear", "resize_linear", 1),
-    (fast, "fast_score_map", "fast_score_map", 1),
-    (fast, "detect", "detect", 1),
-    (extractor, "_top_budget", "budget_cut", 1),
-    (extractor, "gaussian_blur_7x7", "gaussian_blur", 1),
-    (extractor, "ic_angles_at", "ic_angles", 1),
-    (extractor, "_descriptors", "descriptors", 1),
-    (tracking, "_frame_step", "frame_step", 0),
-    (matcher, "search_by_projection_pose", "search_by_projection_pose", 1),
-    (matcher, "search_reference_kf", "search_reference_kf", 1),
-    (tracking, "pose_optimization", "pose_optimization", 1),
-    (matcher, "frustum_check", "frustum_check", 1),
-    (matcher, "search_local_map", "search_local_map", 1),
-    (map_state, "bump_visibility", "bump_visibility", 1),
-    (map_state, "commit_keyframe", "commit_keyframe", 1),
+    ("frontend", 0),                    # tracking.build_frame
+    ("frontend.extract", 1),
+    ("frontend.resize_linear", 2),
+    ("frontend.fast_score_map", 2),
+    ("frontend.detect", 2),
+    ("frontend.budget_cut", 2),
+    ("frontend.gaussian_blur", 2),
+    ("frontend.ic_angles", 2),
+    ("frontend.descriptors", 2),
+    ("frontend.stereo", 1),
+    ("tracking.frame_step", 0),
+    ("tracking.search", 1),
+    ("tracking.search_by_projection_pose", 2),
+    ("tracking.search_reference_kf", 2),
+    ("tracking.frustum_check", 2),
+    ("tracking.search_local_map", 2),
+    ("tracking.pose_solve", 1),         # the two pose_optimization calls
+    ("tracking.map_update", 1),
+    ("tracking.bump_visibility", 2),
+    ("tracking.commit_keyframe", 2),
+    ("tracking.fetch", 0),
 )
-# the parts of one mapping step, nested under the step's own range
+# the parts of one mapping step, nested under the step's own span
 MAP_STAGES = (
-    (local_mapping, "_mapping_body", "mapping_step", 0),
-    (map_state, "covisibility", "covisibility", 1),
-    (local_mapping, "create_new_map_points", "create_new_map_points", 1),
-    (matcher, "search_for_triangulation", "search_for_triangulation", 2),
-    (triangulate, "triangulate_dlt", "triangulate_dlt", 2),
-    (local_mapping, "fuse_duplicates", "fuse_duplicates", 1),
-    (matcher, "search_by_projection_pose", "search_by_projection_pose", 2),
-    (ba, "windowed_bundle_adjustment", "windowed_bundle_adjustment", 1),
-    (local_mapping, "cull_keyframes", "cull_keyframes", 1),
-    (map_state, "compact_points", "compact_points", 1),
-    (map_state, "refresh_point_stats", "refresh_point_stats", 1),
+    ("mapping.mapping_step", 0),
+    ("mapping.covisibility", 1),
+    ("mapping.create_new_map_points", 1),
+    ("mapping.search_for_triangulation", 2),
+    ("mapping.triangulate_dlt", 2),
+    ("mapping.fuse_duplicates", 1),
+    ("mapping.search_by_projection_pose", 2),
+    ("mapping.windowed_bundle_adjustment", 1),
+    ("mapping.cull_keyframes", 1),
+    ("mapping.compact_points", 1),
+    ("mapping.refresh_point_stats", 1),
 )
 # loop closing's programs and their parts; a part that several programs
 # call (covisibility, the projection search) is one row
 LOOP_STAGES = (
-    (loop_closing, "_ingest_and_detect", "ingest_and_detect", 0),
-    (map_state, "covisibility", "covisibility", 1),
-    (vocabulary, "transform", "transform", 1),
-    (vocabulary, "bow_weights", "bow_weights", 1),
-    (database, "query", "query", 1),
-    (database, "detect_candidates", "detect_candidates", 1),
-    (loop_closing, "_sim3_check", "sim3_ladder", 0),
-    (matcher, "search_by_node", "search_by_node", 1),
-    (sim3_solver, "ransac_sim3", "ransac_sim3", 1),
-    (matcher, "search_by_projection_pose", "search_by_projection_pose", 1),
-    (sim3_solver, "refine_sim3_lm", "refine_sim3_lm", 1),
-    (loop_closing, "_apply_correction", "apply_correction", 0),
-    (pose_graph, "optimize_essential_graph", "essential_graph", 1),
-    (pose_graph, "correct_points", "correct_points", 1),
-    (loop_closing, "_gba_start", "gba_start", 0),
-    (loop_closing, "_gba_step", "gba_chunk", 0),
-    (loop_closing, "_gba_finish", "gba_finish", 0),
+    ("loop.ingest_and_detect", 0),
+    ("loop.covisibility", 1),
+    ("loop.transform", 1),
+    ("loop.bow_weights", 1),
+    ("loop.query", 1),
+    ("loop.detect_candidates", 1),
+    ("loop.sim3_ladder", 0),
+    ("loop.search_by_node", 1),
+    ("loop.ransac_sim3", 1),
+    ("loop.search_by_projection_pose", 1),
+    ("loop.refine_sim3_lm", 1),
+    ("loop.apply_correction", 0),
+    ("loop.essential_graph", 1),
+    ("loop.correct_points", 1),
+    ("loop.gba_start", 0),
+    ("loop.gba_chunk", 0),
+    ("loop.gba_finish", 0),
 )
-
 # one relocalization attempt and its parts
 RELOC_STAGES = (
-    (relocalization, "relocalize", "attempt", 0),
-    (relocalization, "_candidates", "bow_candidates", 1),
-    (vocabulary, "transform", "transform", 2),
-    (database, "query", "query", 2),
-    (database, "detect_candidates", "detect_candidates", 2),
-    (relocalization, "_candidate_ladder", "candidate_ladder", 1),
-    (matcher, "search_by_node", "search_by_node", 2),
-    (pnp, "ransac_pnp", "ransac_pnp", 2),
-    (relocalization, "_widen", "widening", 1),
-    (matcher, "frustum_check", "frustum_check", 2),
-    (matcher, "search_local_map", "search_local_map", 2),
-    (relocalization, "pose_optimization", "pose_optimization", 2),
-    (frame_mod, "build_rgbd", "build_frame", 0),
+    ("reloc.attempt", 0),
+    ("reloc.bow_candidates", 1),
+    ("reloc.transform", 2),
+    ("reloc.query", 2),
+    ("reloc.detect_candidates", 2),
+    ("reloc.candidate_ladder", 1),
+    ("reloc.search_by_node", 2),
+    ("reloc.ransac_pnp", 2),
+    ("reloc.widening", 1),
+    ("reloc.frustum_check", 2),
+    ("reloc.search_local_map", 2),
+    ("reloc.pose_optimization", 2),
+    ("reloc.build_frame", 0),
 )
-
-
-def _ranged(fn, name):
-    @functools.wraps(fn)
-    def wrapper(*args, **kwargs):
-        with torch.profiler.record_function(name):
-            return fn(*args, **kwargs)
-    return wrapper
-
-
-@contextlib.contextmanager
-def stage_ranges(stages=STAGES):
-    """Wrap every stage of ``stages`` in a named profiler range."""
-    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _, _ in stages]
-    try:
-        for mod, attr, name, _ in stages:
-            setattr(mod, attr, _ranged(getattr(mod, attr), name))
-        yield
-    finally:
-        for mod, attr, fn in saved:
-            setattr(mod, attr, fn)
+# one call of the monocular initializer and its parts
+MONO_STAGES = (
+    ("mono.init_attempt", 0),
+    ("mono.build_frame", 1),
+    ("mono.search_for_initialization", 1),
+    ("mono.initialize", 1),
+    ("mono.build_map", 1),
+    ("mono.structure_only_ba", 2),
+    ("mono.refresh_point_stats", 2),
+)
 
 
 def _stage_of(event, names):
-    """The innermost stage range that encloses a host event, or None."""
+    """The innermost of the program's ranges ``names`` (``slam.``-prefixed)
+    that encloses a host event, or None."""
     e = event.cpu_parent
     while e is not None:
         if e.name in names:
@@ -256,8 +242,9 @@ def summarize(events, n, stages=STAGES, unit="frame"):
     """Device busy time, launch counts and the per-stage table of one
     profiled window (or several, their events concatenated), from
     ``prof.events()``, each divided by ``n``, the window's count of
-    ``unit``s (frames, or mapping steps)."""
-    names = {name for _, _, name, _ in stages}
+    ``unit``s (frames, or mapping steps). The stages are the program's
+    spans, seen as the profiler's ranges ``slam.<name>``."""
+    names = {PREFIX + name for name, _ in stages}
     host = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
     busy_us = sum(k.duration for e in host for k in e.kernels)
     n_device_ops = sum(len(e.kernels) for e in host)
@@ -275,8 +262,8 @@ def summarize(events, n, stages=STAGES, unit="frame"):
         if stage is not None:
             per[stage]["launches"] += 1
     rows = []
-    for _, _, name, depth in stages:
-        row = per[name]
+    for name, depth in stages:
+        row = per[PREFIX + name]
         rows.append({
             "stage": name, "depth": depth,
             f"calls_per_{unit}": row["calls"] / n,
@@ -314,11 +301,11 @@ def kernel_by_name(averages, name):
 
 
 def stage_table(stages, unit="frame"):
-    lines = [f"{'stage':34s} {'calls':>6s} {'host ms':>9s} {'device ms':>10s} "
+    lines = [f"{'stage':44s} {'calls':>6s} {'host ms':>9s} {'device ms':>10s} "
              f"{'launches':>9s}   (per {unit})"]
     for s in stages:
         name = "  " * s["depth"] + s["stage"]
-        lines.append(f"{name:34s} {s[f'calls_per_{unit}']:6.2f} "
+        lines.append(f"{name:44s} {s[f'calls_per_{unit}']:6.2f} "
                      f"{s[f'host_ms_per_{unit}']:9.3f} "
                      f"{s[f'device_ms_per_{unit}']:10.4f} "
                      f"{s[f'launches_per_{unit}']:9.1f}")
@@ -359,7 +346,7 @@ def main():
     f0 = n_chunks * C
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with stage_ranges(), torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=acts) as prof:
         prof_s = timed(f0, f0 + w)
     plain_s = timed(f0 + w, f0 + 2 * w)
     n_ok = sum(r.state == tracking.OK for r in tracker.records)
@@ -438,8 +425,7 @@ def main_mapping():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if profiled:
-            with stage_ranges(MAP_STAGES), \
-                    torch.profiler.profile(activities=acts) as prof:
+            with torch.profiler.profile(activities=acts) as prof:
                 out = run(m, last_mp, **kwargs)
                 torch.cuda.synchronize()
             profiles.append(prof)
@@ -560,8 +546,7 @@ def main_loop():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             if profiled:
-                with stage_ranges(LOOP_STAGES), \
-                        torch.profiler.profile(activities=acts) as prof:
+                with torch.profiler.profile(activities=acts) as prof:
                     out = fn(*args, **kwargs)
                     torch.cuda.synchronize()
                 profiles[label].append(prof)
@@ -681,8 +666,7 @@ def main_reloc():
         for _ in range(RELOC_REPEATS):
             ok, ms = attempt(gray, aux)
             walls.append(ms)
-        with stage_ranges(RELOC_STAGES), \
-                torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.profile(activities=acts) as prof:
             ok_p, ms_p = attempt(gray, aux)
         if ok != (name == "success") or ok_p != ok:
             raise AssertionError(f"the {name} case gave ok={ok}, {ok_p}")
@@ -720,7 +704,7 @@ def main_reloc():
 
 def _profiled(fn, stages, unit):
     """Run ``fn`` once timed with the host clock and once under the
-    profiler with ``stages``' ranges. Returns (unprofiled ms, a summary
+    profiler, its table of ``stages``. Returns (unprofiled ms, a summary
     dict, the stage table, the top kernels)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -733,8 +717,7 @@ def _profiled(fn, stages, unit):
         return 1e3 * (time.perf_counter() - t0)
 
     plain_ms = timed(fn[0])
-    with stage_ranges(stages), \
-            torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=acts) as prof:
         prof_ms = timed(fn[1])
     summary = summarize(prof.events(), 1, stages, unit=unit)
     busy = summary[f"device_busy_ms_per_{unit}"]
@@ -751,8 +734,6 @@ def _profiled(fn, stages, unit):
 
 def main_mono():
     from orb_slam_2_ros_tpu_torch.io.synthetic import make_room, render
-    from orb_slam_2_ros_tpu_torch.pipeline import mono_init
-    from orb_slam_2_ros_tpu_torch.solvers import initializer
 
     smi = _card()
     ds = SyntheticRGBD(SlamConfig(sensor=SENSOR_RGBD), n_frames=96, seed=0,
@@ -777,19 +758,10 @@ def main_mono():
     for mi in (again, replay):
         for j, g in enumerate(frames[:-1]):
             mi.process(g, j)
-    stages = (
-        (mono_init.MonoInitializer, "process", "init_attempt", 0),
-        (frame_mod, "build_mono", "build_frame", 1),
-        (matcher, "search_for_initialization", "search_for_initialization",
-         1),
-        (initializer, "initialize", "initialize", 1),
-        (mono_init, "_build_map", "build_map", 1),
-        (ba, "bundle_adjustment", "structure_only_ba", 2),
-        (map_state, "refresh_point_stats", "refresh_point_stats", 2))
     i = len(frames) - 1
     init, init_table, init_top = _profiled(
         (lambda: again.process(frames[-1], i),
-         lambda: replay.process(frames[-1], i)), stages, "init")
+         lambda: replay.process(frames[-1], i)), MONO_STAGES, "init")
     init["calls_ms"] = init_ms
     init["init_frame"] = i
 

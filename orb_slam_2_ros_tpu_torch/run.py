@@ -290,8 +290,9 @@ def _run(args, device, mesh):
     if sys_.loop_closer is not None:
         print(f"loops closed: {sys_.loop_closer.n_loops_closed}")
     mx = sys_.metrics()
+    # the top-level spans; their dotted parts stay in ``mx["stages"]``
     stage_str = ", ".join(f"{k} {v['mean_ms']:.1f}ms"
-                          for k, v in mx["stages"].items())
+                          for k, v in mx["stages"].items() if "." not in k)
     print(f"metrics: {mx['keyframes']} KFs, {mx['map_points']} points, "
           f"{mx['points_culled']} culled, {mx['resets']} resets | {stage_str}")
     result = {"frames": n, "seconds": dt, "fps": n / dt,

@@ -10,9 +10,18 @@ The reference leaves each round early through ``lax.while_loop``. Here each
 round runs all its iterations, and a device-side ``done`` flag freezes
 q, t, lambda, err, H and b once the exit test fires: the same result with
 no host synchronisation per iteration.
+
+The iterations launched after their round's ``done`` flag had fired do no
+work. Inside ``done_flags()`` each solve appends its flags, the ``done``
+flag at the start of every iteration of every round, as one (rounds x
+iterations,) bool tensor on the device: their sum is the solve's idle
+iterations, counted without a host read.
 """
 
 from __future__ import annotations
+
+import contextlib
+from contextvars import ContextVar
 
 import torch
 
@@ -21,6 +30,19 @@ from orb_slam_2_ros_tpu_torch.geometry import se3
 from orb_slam_2_ros_tpu_torch.ops.linalg import solve_spd
 
 _EPS = 1e-9
+_DONE_FLAGS: ContextVar = ContextVar("pose_lm_done_flags", default=None)
+
+
+@contextlib.contextmanager
+def done_flags():
+    """Collect the ``done`` flags of the solves run inside: yields a list
+    that gets one (rounds x iterations,) bool tensor per solve."""
+    flags = []
+    token = _DONE_FLAGS.set(flags)
+    try:
+        yield flags
+    finally:
+        _DONE_FLAGS.reset(token)
 
 
 def _residual_jacobian(q, t, pts, obs, cfg: SlamConfig):
@@ -100,11 +122,12 @@ def pose_optimization(q0, t0, pts, obs_uv, obs_ur, octave, valid,
         err = torch.sum(torch.where(live, rho, torch.zeros_like(rho)))
         return G[:6, :6], G[:6, 6], err
 
-    def lm_round(q, t, edge_mask, use_kernel, n_iters):
+    def lm_round(q, t, edge_mask, use_kernel, n_iters, flags):
         H, b, err = weighted_system(q, t, edge_mask, use_kernel)
         lam = torch.full((), 1e-4, dtype=torch.float32, device=pts.device)
         done = torch.zeros((), dtype=torch.bool, device=pts.device)
         for _ in range(n_iters):
+            flags.append(done)
             Hd = H + lam * torch.diag(torch.diagonal(H)) + 1e-9 * eye6
             xi = -solve_spd(Hd, b)
             dq, dt = se3.exp(xi)
@@ -129,10 +152,14 @@ def pose_optimization(q0, t0, pts, obs_uv, obs_ur, octave, valid,
 
     q, t = q0, t0
     inlier = valid
+    flags = []
     for rnd in range(sc.pose_rounds):
         use_kernel = rnd < sc.pose_rounds - 1   # kernel dropped in last round
-        q, t = lm_round(q, t, inlier, use_kernel, sc.pose_iters)
+        q, t = lm_round(q, t, inlier, use_kernel, sc.pose_iters, flags)
         e, _, z = _residual_jacobian(q, t, pts, obs, cfg)
         chi2 = _edge_chi2(e, is_stereo, inv_sigma2)
         inlier = valid & (chi2 <= delta2) & (z > _EPS)
+    sink = _DONE_FLAGS.get()
+    if sink is not None and flags:
+        sink.append(torch.stack(flags))
     return q, t, inlier, torch.sum(inlier, dtype=torch.int32)

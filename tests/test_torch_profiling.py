@@ -1,7 +1,7 @@
 """The stage profiler of the port (``orb_slam_2_ros_tpu_torch.profiling``)
-on the CPU, at a small size: its ranges see every stage of the tracking
-step as often as the step calls it, nest inside ``frame_step``, and leave
-the wrapped functions as they were."""
+on the CPU, at a small size: the program's own spans, seen as the
+profiler's ``slam.*`` ranges, give every stage of the tracking step as often
+as the step calls it, each nested inside its parent's row."""
 
 import numpy as np
 import pytest
@@ -17,6 +17,19 @@ from orb_slam_2_ros_tpu_torch.pipeline import tracking
 N_LEVELS = 3
 
 
+def _parts_within_parents(rows, key):
+    """Each row's host time against the sum of its parts' (the rows one
+    level deeper listed after it, up to the next row at its level)."""
+    for i, row in enumerate(rows):
+        inner = 0.0
+        for child in rows[i + 1:]:
+            if child["depth"] <= row["depth"]:
+                break
+            if child["depth"] == row["depth"] + 1:
+                inner += child[key]
+        assert inner <= row[key], row["stage"]
+
+
 def test_stage_ranges_count_every_stage():
     cam = CameraConfig(width=160, height=120, fx=130.0, fy=130.0, cx=79.5,
                        cy=59.5, bf=10.0, th_depth=50.0)
@@ -29,38 +42,32 @@ def test_stage_ranges_count_every_stage():
     grays = np.stack([ds[i][0] for i in range(2)])
     depths = np.stack([ds[i][1] for i in range(2)])
     tracker = tracking.Tracker(cfg, device="cpu")
-    before = [getattr(mod, attr) for mod, attr, _, _ in profiling.STAGES]
-    with profiling.stage_ranges(), torch.profiler.profile(
+    with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         tracker.process_chunk(grays, depths, ds.timestamps[:2])
-    assert [getattr(mod, attr) for mod, attr, _, _ in profiling.STAGES] \
-        == before
 
     s = profiling.summarize(prof.events(), 2)
     per = {row["stage"]: row for row in s["stages"]}
     calls = {name: row["calls_per_frame"] for name, row in per.items()}
     assert calls == {
-        "frame_step": 1, "build_frame": 1, "resize_linear": N_LEVELS - 1,
-        "fast_score_map": N_LEVELS, "detect": N_LEVELS,
-        "budget_cut": N_LEVELS, "gaussian_blur": N_LEVELS,
-        "ic_angles": N_LEVELS, "descriptors": N_LEVELS,
-        "search_by_projection_pose": 1, "search_reference_kf": 1,
-        "pose_optimization": 2, "frustum_check": 1, "search_local_map": 1,
-        "bump_visibility": 1, "commit_keyframe": 1}
-    # each depth-0 stage encloses the depth-1 stages listed after it
-    parts = {}
-    for row in s["stages"]:
-        if row["depth"] == 0:
-            parent = row["stage"]
-            parts[parent] = 0.0
-        else:
-            parts[parent] += row["host_ms_per_frame"]
-    assert set(parts) == {"build_frame", "frame_step"}
-    for parent, inner in parts.items():
-        assert 0 < inner <= per[parent]["host_ms_per_frame"], parent
+        "tracking.frame_step": 1, "frontend": 1, "frontend.extract": 1,
+        "frontend.resize_linear": N_LEVELS - 1,
+        "frontend.fast_score_map": N_LEVELS, "frontend.detect": N_LEVELS,
+        "frontend.budget_cut": N_LEVELS, "frontend.gaussian_blur": N_LEVELS,
+        "frontend.ic_angles": N_LEVELS, "frontend.descriptors": N_LEVELS,
+        "frontend.stereo": 0, "tracking.search": 4,
+        "tracking.search_by_projection_pose": 1,
+        "tracking.search_reference_kf": 1, "tracking.pose_solve": 2,
+        "tracking.frustum_check": 1, "tracking.search_local_map": 1,
+        "tracking.map_update": 2, "tracking.bump_visibility": 1,
+        "tracking.commit_keyframe": 1, "tracking.fetch": 0.5}
+    # each stage encloses the stages one level deeper listed after it
+    _parts_within_parents(s["stages"], "host_ms_per_frame")
+    for parent in ("frontend", "tracking.frame_step", "tracking.search"):
+        assert per[parent]["host_ms_per_frame"] > 0, parent
     # no card: nothing was launched or run on a device
     assert s["launches_per_frame"] == 0 and s["device_busy_ms_per_frame"] == 0
-    assert "pose_optimization" in profiling.stage_table(s["stages"])
+    assert "tracking.pose_solve" in profiling.stage_table(s["stages"])
     assert all(r.state == tracking.OK for r in tracker.records)
 
 
@@ -84,26 +91,25 @@ def test_mapping_stage_ranges_count_every_part():
                           ds.timestamps[:2])
     mapper = LocalMapper(cfg, window=2)
     stages = profiling.MAP_STAGES
-    before = [getattr(mod, attr) for mod, attr, _, _ in stages]
-    with profiling.stage_ranges(stages), torch.profiler.profile(
+    with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         mapper.run(tracker.carry.m, tracker.carry.last_mp)
-    assert [getattr(mod, attr) for mod, attr, _, _ in stages] == before
     assert mapper.n_executed == 1
 
     s = profiling.summarize(prof.events(), 1, stages, unit="step")
     per = {row["stage"]: row for row in s["stages"]}
     assert {name: row["calls_per_step"] for name, row in per.items()} == {
-        "mapping_step": 1, "covisibility": 1, "create_new_map_points": 1,
-        "search_for_triangulation": 3, "triangulate_dlt": 3,
-        "fuse_duplicates": 1, "search_by_projection_pose": 2 * 2,
-        "windowed_bundle_adjustment": 1, "cull_keyframes": 1,
-        "compact_points": 1, "refresh_point_stats": 1}
-    inner = sum(row["host_ms_per_step"] for row in s["stages"]
-                if row["depth"] == 1)
-    assert 0 < inner <= per["mapping_step"]["host_ms_per_step"]
+        "mapping.mapping_step": 1, "mapping.covisibility": 1,
+        "mapping.create_new_map_points": 1,
+        "mapping.search_for_triangulation": 3, "mapping.triangulate_dlt": 3,
+        "mapping.fuse_duplicates": 1,
+        "mapping.search_by_projection_pose": 2 * 2,
+        "mapping.windowed_bundle_adjustment": 1, "mapping.cull_keyframes": 1,
+        "mapping.compact_points": 1, "mapping.refresh_point_stats": 1}
+    _parts_within_parents(s["stages"], "host_ms_per_step")
+    assert per["mapping.mapping_step"]["host_ms_per_step"] > 0
     assert s["launches_per_step"] == 0 and s["device_busy_ms_per_step"] == 0
-    assert "windowed_bundle_adjustment" in profiling.stage_table(
+    assert "mapping.windowed_bundle_adjustment" in profiling.stage_table(
         s["stages"], unit="step")
     numbers = profiling.step_numbers(mapper.last_step)
     assert all(not isinstance(v, torch.Tensor) for v in numbers.values())
@@ -194,13 +200,11 @@ def test_loop_stage_ranges_count_every_program():
     voc = vocabulary.train_vocabulary(descs, cfg, seed=0, device="cpu")
     lc = LoopCloser(cfg, voc, min_kfs_between_loops=6)
     stages = profiling.LOOP_STAGES
-    before = [getattr(mod, attr) for mod, attr, _, _ in stages]
     n_calls = 8     # the reference's own test closes the ring in 8
-    with profiling.stage_ranges(stages), torch.profiler.profile(
+    with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         for _ in range(n_calls):
             m, _ = lc.process(m, defer=False)
-    assert [getattr(mod, attr) for mod, attr, _, _ in stages] == before
     assert lc.n_loops_closed == lc.n_corrections == 1 and lc.n_ladders >= 1
 
     s = profiling.summarize(prof.events(), 1, stages, unit="call")
@@ -210,24 +214,28 @@ def test_loop_stage_ranges_count_every_program():
     # per call
     detects = N_KF + n_calls - N_KF // 4
     assert calls == {
-        "ingest_and_detect": n_calls, "transform": N_KF, "bow_weights": N_KF,
-        "query": detects, "detect_candidates": detects,
+        "loop.ingest_and_detect": n_calls, "loop.transform": N_KF,
+        "loop.bow_weights": N_KF, "loop.query": detects,
+        "loop.detect_candidates": detects,
         # per call of the closer, per ladder (widening) and twice per
         # correction (the graph's edges, the fuse targets)
-        "covisibility": n_calls + L + 2 * X,
-        "sim3_ladder": L, "search_by_node": L, "ransac_sim3": L,
-        "refine_sim3_lm": L, "search_by_projection_pose": 3 * L + 9 * X,
-        "apply_correction": X, "essential_graph": X, "correct_points": X,
-        "gba_start": X, "gba_chunk": X, "gba_finish": X}
+        "loop.covisibility": n_calls + L + 2 * X,
+        "loop.sim3_ladder": L, "loop.search_by_node": L,
+        "loop.ransac_sim3": L, "loop.refine_sim3_lm": L,
+        "loop.search_by_projection_pose": 3 * L + 9 * X,
+        "loop.apply_correction": X, "loop.essential_graph": X,
+        "loop.correct_points": X, "loop.gba_start": X, "loop.gba_chunk": X,
+        "loop.gba_finish": X}
     assert s["launches_per_call"] == 0
-    assert "essential_graph" in profiling.stage_table(s["stages"], unit="call")
+    assert "loop.essential_graph" in profiling.stage_table(s["stages"],
+                                                           unit="call")
 
 
 def test_reloc_stage_ranges_count_every_part():
-    """The relocalization profile's ranges over one attempt of the port's
+    """The relocalization profile's spans over one attempt of the port's
     ``System`` (CPU, the small configuration over 16 frames): every part
-    seen once, the pose LM twice (the candidates' batch and the final one),
-    and the stages restored afterwards."""
+    seen once, the pose LM twice (the candidates' batch and the final
+    one)."""
     import dataclasses
 
     from orb_slam_2_ros_tpu.config import VocabConfig
@@ -251,17 +259,15 @@ def test_reloc_stage_ranges_count_every_part():
                                                       device="cpu"))
     system.track_chunk(grays, depths, ds.timestamps)
     stages = profiling.RELOC_STAGES
-    before = [getattr(mod, attr) for mod, attr, _, _ in stages]
-    with profiling.stage_ranges(stages), torch.profiler.profile(
+    with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         ok = system._attempt_reloc(*system._to_float_frame(grays[5],
                                                            depths[5]))[0]
     assert ok and system.n_relocalized == 1
-    assert [getattr(mod, attr) for mod, attr, _, _ in stages] == before
     s = profiling.summarize(prof.events(), 1, stages, unit="attempt")
     calls = {r["stage"]: r["calls_per_attempt"] for r in s["stages"]}
-    assert calls == {name: (2 if name == "pose_optimization" else 1)
-                     for _, _, name, _ in stages}
-    assert "candidate_ladder" in profiling.stage_table(s["stages"],
-                                                       unit="attempt")
+    assert calls == {name: (2 if name == "reloc.pose_optimization" else 1)
+                     for name, _ in stages}
+    assert "reloc.candidate_ladder" in profiling.stage_table(
+        s["stages"], unit="attempt")
 

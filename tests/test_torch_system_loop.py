@@ -206,9 +206,18 @@ def test_reset_clears_the_closer_and_metrics(seq, port_system):
     assert met["keyframes"] == system.tracker.n_kfs
     assert met["map_points"] == int(system.tracker.map.mp_valid.sum())
     assert met["points_culled"] == system.n_culled_total
-    assert set(met["stages"]) == {"tracking", "local_mapping", "loop_closing"}
-    assert met["stages"]["tracking"]["count"] == 2
-    assert all(s["total_ms"] > 0 for s in met["stages"].values())
+    stages = met["stages"]
+    # the System's stages and the program's other top-level spans (the
+    # frame build, B1's wrapper); the dotted names are their parts
+    assert {s for s in stages if "." not in s} == {
+        "tracking", "local_mapping", "loop_closing", "frontend", "b1"}
+    assert stages["tracking"]["count"] == 2
+    assert stages["frontend"]["count"] == N_FRAMES
+    counters = {"tracking.pose_lm_iters", "tracking.pose_lm_idle_iters"}
+    assert stages["tracking.pose_lm_iters"]["count"] == 80 * N_FRAMES
+    assert all(stages[c]["total_ms"] == 0 for c in counters)
+    assert all(s["total_ms"] > 0 for name, s in stages.items()
+               if name not in counters)
     assert system.last_big_change_idx == 0
     lc = system.loop_closer
     assert lc._n_ingested > 0 and bool(lc.state.db.kf_valid.any())
