@@ -16,11 +16,24 @@ work. Inside ``done_flags()`` each solve appends its flags, the ``done``
 flag at the start of every iteration of every round, as one (rounds x
 iterations,) bool tensor on the device: their sum is the solve's idle
 iterations, counted without a host read.
+
+On the card the solve is one CUDA graph replay. The solve reads nothing
+back to the host and its shapes are fixed by its inputs, so
+``pose_optimization`` captures the eager body (``_pose_optimization_eager``)
+once per key (input shapes, dtypes and devices, and the configuration
+values the kernels bake in) over static input buffers, and every later call
+copies its inputs in, replays the graph and returns clones of the outputs:
+the same kernels, in the same order, on the same values as the eager solve,
+for one host launch instead of thousands. CPU tensors, a ``torch.func``
+transform (relocalization's vmapped solves) and a stream that is already
+capturing take the eager body. The counters ``pose_lm.graph_captures`` and
+``pose_lm.graph_replays`` say how often each happens.
 """
 
 from __future__ import annotations
 
 import contextlib
+from collections import OrderedDict
 from contextvars import ContextVar
 
 import torch
@@ -28,6 +41,7 @@ import torch
 from orb_slam_2_ros_tpu_torch.config import SlamConfig
 from orb_slam_2_ros_tpu_torch.geometry import se3
 from orb_slam_2_ros_tpu_torch.ops.linalg import solve_spd
+from orb_slam_2_ros_tpu_torch.pipeline.metrics import count
 
 _EPS = 1e-9
 _DONE_FLAGS: ContextVar = ContextVar("pose_lm_done_flags", default=None)
@@ -86,7 +100,93 @@ def pose_optimization(q0, t0, pts, obs_uv, obs_ur, octave, valid,
     """Optimize a world-to-camera pose against fixed 3D points.
 
     pts (M, 3); obs_uv (M, 2); obs_ur (M,) (-1 = mono edge); octave (M,)
-    int32; valid (M,) bool. Returns (q, t, inlier (M,) bool, n_inliers)."""
+    int32; valid (M,) bool. Returns (q, t, inlier (M,) bool, n_inliers).
+    On the card, a replay of the eager solve's CUDA graph (see the module's
+    doc); elsewhere the eager solve itself."""
+    args = (q0, t0, pts, obs_uv, obs_ur, octave, valid)
+    if not _graphable(args):
+        return _pose_optimization_eager(*args, cfg)
+    key = _graph_key(args, cfg)
+    solve = _GRAPHS.get(key)
+    if solve is None:
+        if len(_GRAPHS) >= _MAX_GRAPHS:
+            _GRAPHS.popitem(last=False)
+        # the pool of a live graph; a new one once none lives, since a pool
+        # is released with its last graph
+        pool = next(iter(_GRAPHS.values())).graph.pool() if _GRAPHS else None
+        solve = _GRAPHS[key] = _GraphSolve(args, cfg, pool)
+        count("pose_lm.graph_captures", 1)
+    else:
+        _GRAPHS.move_to_end(key)
+    count("pose_lm.graph_replays", 1)
+    return solve(args)
+
+
+# captured solves, least recently used first. They share one memory pool,
+# which is sound because their replays never overlap: each is stream-ordered
+# after the last, and its outputs are cloned before the next
+_GRAPHS: "OrderedDict[tuple, _GraphSolve]" = OrderedDict()
+_MAX_GRAPHS = 4
+_WARMUP = 3         # eager solves on a side stream before the capture
+
+
+def _graphable(args) -> bool:
+    """The graph path: every input a plain CUDA tensor (no ``torch.func``
+    wrapper such as vmap's batched tensor), and no capture under way."""
+    return (all(a.is_cuda for a in args)
+            and not any(torch._C._functorch.is_functorch_wrapped_tensor(a)
+                        for a in args)
+            and not torch.cuda.is_current_stream_capturing())
+
+
+def _graph_key(args, cfg: SlamConfig) -> tuple:
+    """What a captured solve bakes in: the inputs' shapes, dtypes and
+    devices, and the configuration values its kernels take as scalars."""
+    cam, sc = cfg.camera, cfg.solver
+    return (tuple((a.shape, a.dtype, a.device) for a in args),
+            cam.fx, cam.fy, cam.cx, cam.cy, cam.bf, cfg.orb.scale_factor,
+            sc.huber_mono2, sc.huber_stereo2, sc.pose_rounds, sc.pose_iters)
+
+
+class _GraphSolve:
+    """One solve captured as a CUDA graph over static input buffers, after
+    the ``torch.cuda.graph`` recipe: warm-up on a side stream (cuBLAS and
+    cuSOLVER handles, workspaces, lazily loaded kernels), then the capture.
+    A call copies its inputs in, replays, and returns clones, so that no
+    output is overwritten by the next replay."""
+
+    def __init__(self, args, cfg: SlamConfig, pool=None):
+        with torch.cuda.device(args[0].device):
+            self.static = [a.clone() for a in args]
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            # the warm-up's and the capture's flags stay out of any caller's
+            # done_flags(); the capture's are the graph's static flag output
+            with done_flags() as flags:
+                with torch.cuda.stream(side):
+                    for _ in range(_WARMUP):
+                        _pose_optimization_eager(*self.static, cfg)
+                torch.cuda.current_stream().wait_stream(side)
+                self.graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(self.graph, pool=pool,
+                                      capture_error_mode="thread_local"):
+                    self.out = _pose_optimization_eager(*self.static, cfg)
+            self.flags = flags[-1]
+
+    def __call__(self, args):
+        for s, a in zip(self.static, args):
+            s.copy_(a)
+        with torch.cuda.device(self.static[0].device):
+            self.graph.replay()
+        sink = _DONE_FLAGS.get()
+        if sink is not None:
+            sink.append(self.flags.clone())
+        return tuple(o.clone() for o in self.out)
+
+
+def _pose_optimization_eager(q0, t0, pts, obs_uv, obs_ur, octave, valid,
+                             cfg: SlamConfig):
+    """``pose_optimization``'s solve, launched op by op."""
     sc = cfg.solver
     is_stereo = obs_ur > 0
     inv_sigma2 = torch.pow(torch.full_like(obs_ur, cfg.orb.scale_factor),
